@@ -1,0 +1,445 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Phases (each one fails the run, exit code != 0, on any error):
+
+1. probe   -- a CUDA card must be present; prints its name and power limit;
+2. build   -- compiles the CUDA kernels (nvcc, sm_90a) and the native
+              ed25519 library (g++) from the repository's sources, both at
+              once;
+3. kernels -- each kernel against its plain PyTorch version on the card,
+              bit for bit, in every arm and at N in {100000, 589}, K in
+              {8, 16, 32}; times both at the main path's shapes (CUDA
+              events) beside the least time the card could take;
+4. main    -- the closed loop: 128 signed envelopes (4 forged) verified by
+              the native library, GossipSub(100000 peers, 32 slots, degree
+              16, 128-message window) on the card, 128 publishes with the
+              real verdicts, a warm and a timed 24-round recorded rollout,
+              the flight summary and delivery stats; asserts delivery,
+              that no forged message spread, and that the timed rollout
+              launched K1 24 times and K2 3 times.  A small model run on
+              the card and on the CPU must agree leaf for leaf.
+
+The last line is ``{"ok": true, "device": {...}}``; nothing else is
+printed after a failure.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+N_MSGS, N_FORGED, ROLLOUT_STEPS = 128, 4, 24
+HEADLINE = dict(n_peers=100_000, n_slots=32, conn_degree=16,
+                msg_window=N_MSGS)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if out.returncode != 0 or not out.stdout.strip():
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0].strip()
+
+
+# -- phase 3: kernels against their plain versions ---------------------------
+
+
+def _rand(gen, shape, dev, p=None, high=None):
+    import torch
+
+    if p is not None:
+        return torch.rand(shape, generator=gen, device=dev) < p
+    if high is not None:
+        return torch.randint(0, high, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+    return torch.randint(-2**31, 2**31, shape, generator=gen, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+
+
+def _max_err(out, ref) -> float:
+    import torch
+
+    err = 0.0
+    for a, b in zip(out, ref):
+        if a.dtype == torch.float32:
+            d = (a.double() - b.double()).abs()
+            d = torch.where(torch.isnan(a) != torch.isnan(b), torch.inf, d)
+        else:
+            d = (a.to(torch.int64) - b.to(torch.int64)).abs().double()
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
+
+
+def _time_ms(fn, reps: int = 20, lead: bool = True) -> float:
+    """Median device time of one call (CUDA events), after a warm call.
+
+    With ``lead`` each timed call is queued behind a ~10 ms device spin, so
+    the host has enqueued all its launches before the first one runs and
+    the events bracket device work only; without it they also take in the
+    host's time to issue the call (the GPU waits on the Python wrapper)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        if lead:
+            torch.cuda._sleep(20_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def propagate_inputs(gen, n, k, w, dev, arm):
+    mesh = _rand(gen, (n, k), dev, p=0.25)
+    nbrs = _rand(gen, (n, k), dev, high=n + 1) - 1
+    edge_live = _rand(gen, (n, k), dev, p=0.95)
+    alive = _rand(gen, (n,), dev, p=0.95)
+    have = _rand(gen, (n, w), dev) & _rand(gen, (n, w), dev)
+    fresh = _rand(gen, (n, w), dev) & _rand(gen, (n, w), dev)
+    valid = _rand(gen, (w,), dev)
+    kw = {}
+    if arm == "idontwant":
+        kw = dict(idontwant=True,
+                  idw_have_w=have & _rand(gen, (n, w), dev))
+    elif arm == "fresh_src":
+        kw = dict(fresh_src=_rand(gen, (n, k, w), dev))
+    return (mesh, nbrs, edge_live, alive, have, fresh, valid), kw
+
+
+def propagate_bytes(args, kw, out) -> int:
+    """Bytes K1 must move for these inputs: every [N, K] mask and [N, W]
+    plane read once, a neighbor id only where the edge delivers, the
+    sender words once per distinct sender row, every output written once."""
+    import torch
+
+    mesh, nbrs, edge_live, alive, have, fresh, valid = args
+    ok = mesh & edge_live
+    n_ok = int(ok.sum())
+    if "fresh_src" in kw:
+        senders = _nbytes(kw["fresh_src"]) * n_ok // max(ok.numel(), 1)
+        ids = 0
+    else:
+        rows = torch.unique(torch.clamp(nbrs[ok], 0, nbrs.shape[0] - 1))
+        senders = int(rows.numel()) * fresh.shape[1] * 4
+        ids = 4 * n_ok
+    return (_nbytes(mesh, edge_live, alive, have, valid, kw.get("idw_have_w"))
+            + ids + senders + _nbytes(*out))
+
+
+def exchange_inputs(gen, n, k, w, dev):
+    return (
+        _rand(gen, (n, k), dev, high=n),            # jidx_p
+        _rand(gen, (n, k), dev, p=0.2),             # adv_ok_p
+        _rand(gen, (n, k), dev, p=0.9),             # accept_p
+        _rand(gen, (n, k), dev, p=0.95),            # serve_p
+        _rand(gen, (n, w), dev) & _rand(gen, (n, w), dev),   # rows
+        _rand(gen, (n, w), dev) & _rand(gen, (n, w), dev),   # have_dedup
+        _rand(gen, (n,), dev, p=0.95),              # alive
+    )
+
+
+def exchange_bytes(args, out) -> int:
+    """Bytes K2 must move: the [N, K] masks, the dedup view and liveness
+    read once, an advertiser id and its words only where it advertised
+    (distinct rows once), every output written once."""
+    import torch
+
+    jidx_p, adv_ok_p, accept_p, serve_p, rows, dedup, alive = args
+    n_adv = int(adv_ok_p.sum())
+    distinct = torch.unique(jidx_p[adv_ok_p]).numel()
+    return (_nbytes(adv_ok_p, accept_p, serve_p, dedup, alive) + 4 * n_adv
+            + int(distinct) * rows.shape[1] * 4 + _nbytes(*out))
+
+
+def check_kernels(dev):
+    """Phase 3.  Returns the per-kernel records (launches filled later)."""
+    import torch
+
+    from go_libp2p_pubsub_torch.ops import cuda_gossip
+    from go_libp2p_pubsub_torch.ops import gossip_packed as plain
+
+    gen = torch.Generator(device=dev)
+    w = N_MSGS // 32
+    err = {"propagate": 0.0, "exchange_select": 0.0}
+    cases = 0
+    for n in (HEADLINE["n_peers"], 589):
+        for k in (8, 16, 32):
+            for arm in ("plain", "idontwant", "fresh_src"):
+                gen.manual_seed(n * 100 + k)
+                args, kw = propagate_inputs(gen, n, k, w, dev, arm)
+                out = cuda_gossip.propagate(*args, **kw)
+                ref = plain.propagate_packed(*args, **kw)
+                torch.cuda.synchronize()
+                e = _max_err(out, ref)
+                if e != 0.0:
+                    fail(f"K1 {arm} N={n} K={k}: max abs err {e}")
+                err["propagate"] = max(err["propagate"], e)
+                cases += 1
+            for caps in ((3, 2), (5000, 5000)):
+                gen.manual_seed(n * 100 + k + 7)
+                args = exchange_inputs(gen, n, k, w, dev)
+                out = cuda_gossip.exchange_select(*args, *caps)
+                ref = plain.exchange_select(*args, *caps)
+                torch.cuda.synchronize()
+                e = _max_err(out, ref)
+                if e != 0.0:
+                    fail(f"K2 caps={caps} N={n} K={k}: max abs err {e}")
+                err["exchange_select"] = max(err["exchange_select"], e)
+                cases += 1
+
+    # Times at the main path's shapes (N=100000, K=32, W=4).
+    n, k = HEADLINE["n_peers"], HEADLINE["n_slots"]
+    gen.manual_seed(1)
+    args, kw = propagate_inputs(gen, n, k, w, dev, "plain")
+    k1 = lambda: cuda_gossip.propagate(*args, **kw)  # noqa: E731
+    k1_ms, k1_call = _time_ms(k1), _time_ms(k1, lead=False)
+    k1_plain = _time_ms(lambda: plain.propagate_packed(*args, **kw), reps=5)
+    k1_bytes = propagate_bytes(args, kw, cuda_gossip.propagate(*args, **kw))
+    xargs = exchange_inputs(gen, n, k, w, dev)
+    caps = (5000, 5000)
+    k2 = lambda: cuda_gossip.exchange_select(*xargs, *caps)  # noqa: E731
+    k2_ms, k2_call = _time_ms(k2), _time_ms(k2, lead=False)
+    k2_plain = _time_ms(lambda: plain.exchange_select(*xargs, *caps), reps=5)
+    k2_bytes = exchange_bytes(xargs, cuda_gossip.exchange_select(*xargs, *caps))
+    src = "go_libp2p_pubsub_torch/csrc/gossip_kernels.cu"
+    records = [
+        dict(name="gossip_propagate", route="cuda", source=src,
+             replaces="go_libp2p_pubsub_tpu/ops/pallas_gossip.py:77",
+             launches=0, max_abs_err=err["propagate"], ms=k1_ms,
+             plain_ms=k1_plain, bound_ms=k1_bytes / HBM_BYTES_PER_S * 1e3,
+             bound_by="bytes", library_ms=None, bound_bytes=k1_bytes,
+             call_ms=k1_call),
+        dict(name="gossip_exchange", route="cuda", source=src,
+             replaces="go_libp2p_pubsub_tpu/ops/pallas_gossip.py:212",
+             launches=0, max_abs_err=err["exchange_select"], ms=k2_ms,
+             plain_ms=k2_plain, bound_ms=k2_bytes / HBM_BYTES_PER_S * 1e3,
+             bound_by="bytes", library_ms=None, bound_bytes=k2_bytes,
+             call_ms=k2_call),
+    ]
+    for r in records:
+        r["cases"] = cases
+    return records
+
+
+# -- phase 4: the closed loop --------------------------------------------------
+
+
+def signed_window(rng):
+    """128 envelopes signed by the native library, 4 of them tampered after
+    signing so their signatures must fail."""
+    from go_libp2p_pubsub_torch.crypto import native
+
+    seeds = [rng.bytes(32) for _ in range(N_MSGS)]
+    payloads = [rng.bytes(64) for _ in range(N_MSGS)]
+    msgs = [native.signing_bytes("bench", i, p) for i, p in enumerate(payloads)]
+    pks = native.public_key_batch(seeds)
+    sigs = native.sign_batch(seeds, msgs)
+    forged = set(rng.choice(N_MSGS, size=N_FORGED, replace=False).tolist())
+    envs = []
+    for i in range(N_MSGS):
+        payload = payloads[i]
+        if i in forged:
+            payload = bytes([payload[0] ^ 0xFF]) + payload[1:]
+        envs.append(native.Envelope("bench", i, payload, pks[i], sigs[i]))
+    return envs, forged
+
+
+def small_model_agrees(dev) -> int:
+    """A 2,000-peer model from one seed, on the card (kernels) and on the
+    CPU (plain versions): every leaf and record channel must be equal."""
+    import torch
+
+    from go_libp2p_pubsub_torch import bridge
+    from go_libp2p_pubsub_torch.models.gossipsub import GossipSub
+
+    kw = dict(n_peers=2000, n_slots=32, conn_degree=16, msg_window=N_MSGS)
+    results = []
+    for device in (dev, "cpu"):
+        gs = GossipSub(device=device, **kw)
+        st = gs.init(seed=7)
+        for s in range(40):
+            st = gs.publish(st, (s * 97) % 2000, s, s % 9 != 4)
+        st, rec = gs.rollout(st, ROLLOUT_STEPS, record=True)
+        results.append((bridge.state_to_numpy(st), rec))
+    (a, ra), (b, rb) = results
+
+    def leaves(x, pre=""):
+        for name in type(x)._fields:
+            v = getattr(x, name)
+            if hasattr(v, "_fields"):
+                yield from leaves(v, pre + name + ".")
+            else:
+                yield pre + name, v
+
+    import numpy as np
+
+    n = 0
+    for (name, x), (_, y) in zip(leaves(a), leaves(b)):
+        x, y = np.asarray(x), np.asarray(y)
+        if x.dtype == np.float32:
+            x, y = x.view(np.int32), y.view(np.int32)
+        if not np.array_equal(x, y):
+            fail(f"card and CPU runs differ in leaf {name}")
+        n += 1
+    for name in ra:
+        x, y = ra[name].cpu(), rb[name]
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            fail(f"card and CPU runs differ in record channel {name}")
+        n += 1
+    return n
+
+
+def main_path(dev, card: str):
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_torch.crypto import native
+    from go_libp2p_pubsub_torch.models.gossipsub import GossipSub
+    from go_libp2p_pubsub_torch.ops import cuda_gossip
+    from go_libp2p_pubsub_torch.utils.metrics import flight_summary
+
+    rng = np.random.default_rng(1)
+    envs, forged = signed_window(rng)
+    expected = np.array([i not in forged for i in range(N_MSGS)])
+    pks = [e.pubkey for e in envs]
+    msgs = [native.signing_bytes(e.topic, e.seqno, e.payload) for e in envs]
+    sigs = [e.signature for e in envs]
+    native.verify_batch(pks[:16], msgs[:16], sigs[:16])  # warm threads
+    t0 = time.perf_counter()
+    verdicts = native.verify_batch(pks, msgs, sigs)
+    verify_s = time.perf_counter() - t0
+    if not np.array_equal(verdicts, expected):
+        fail("native verdicts do not match the forged set")
+
+    cuda_gossip.reset_launches()
+    gs = GossipSub(device=dev, **HEADLINE)
+    t0 = time.perf_counter()
+    st = gs.init(seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    for slot in range(N_MSGS):
+        st = gs.publish(st, int(rng.integers(HEADLINE["n_peers"])), slot,
+                        bool(verdicts[slot]))
+    torch.cuda.synchronize()
+
+    gs.rollout(st, ROLLOUT_STEPS, record=True)     # warm run
+    torch.cuda.synchronize()
+    cuda_gossip.reset_launches()
+    t0 = time.perf_counter()
+    out, rec = gs.rollout(st, ROLLOUT_STEPS, record=True)
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t0
+    launches = {"gossip_propagate": cuda_gossip.propagate.launches,
+                "gossip_exchange": cuda_gossip.exchange_select.launches}
+    if launches != {"gossip_propagate": ROLLOUT_STEPS,
+                    "gossip_exchange": ROLLOUT_STEPS // 8}:
+        fail(f"timed rollout launched {launches}, expected "
+             f"{ROLLOUT_STEPS} K1 and {ROLLOUT_STEPS // 8} K2")
+
+    flight = flight_summary(rec)
+    frac, p50, p99 = (x.cpu().numpy() for x in gs.delivery_stats(out))
+    if frac.shape != (N_MSGS,):
+        fail(f"delivery_stats frac shape {frac.shape}")
+    mean_frac = float(np.nanmean(frac))
+    if not mean_frac > 0.999:
+        fail(f"delivery degraded: mean frac {mean_frac}")
+    if not (np.isfinite(p50) and np.isfinite(p99)):
+        fail(f"latency percentiles not finite: {p50} {p99}")
+    if float(p50) != flight["lat_p50"] or float(p99) != flight["lat_p99"]:
+        fail(f"flight-record latency quantiles {flight['lat_p50']}/"
+             f"{flight['lat_p99']} disagree with delivery_stats {p50}/{p99}")
+    have = gs.have_bool(out).cpu().numpy()
+    for i in forged:
+        if int(have[:, i].sum()) > 1:
+            fail(f"forged message {i} propagated")
+    if np.isnan(frac[sorted(forged)]).sum() != N_FORGED:
+        fail("forged messages counted as deliverable")
+    delivered = float(np.nansum(frac)) * HEADLINE["n_peers"]
+    value = delivered / (rollout_s + verify_s)
+    n_checked = small_model_agrees(dev)
+    emit(dict(
+        phase="main", msgs_per_sec=value, delivered=delivered,
+        delivery_mean=mean_frac, p50_rounds=float(p50),
+        p99_rounds=float(p99), rollout_ms=rollout_s * 1e3,
+        verify_ms=verify_s * 1e3, init_s=init_s, rounds=ROLLOUT_STEPS,
+        launches=launches, small_model_leaves_equal=n_checked,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9, card=card,
+    ))
+    return launches
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device (torch.cuda.is_available() is False)")
+    sys.path.insert(0, ROOT)
+    try:
+        from go_libp2p_pubsub_torch.crypto import native
+        from go_libp2p_pubsub_torch.ops import cuda_gossip
+    except ImportError as e:
+        fail(f"the port is not beside this script ({e})")
+    card = card_line()
+    print(card, flush=True)
+    dev = torch.device("cuda", 0)
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        kernels = ex.submit(cuda_gossip.build, True)
+        ed = ex.submit(native.build)
+        ptxas = kernels.result()
+        ed.result()
+    emit(dict(phase="build", seconds=time.perf_counter() - t0,
+              ptxas=[ln.strip() for ln in ptxas.splitlines()
+                     if "registers" in ln or "spill" in ln]))
+
+    records = check_kernels(dev)
+    launches = main_path(dev, card)
+    for r in records:
+        r["launches"] = launches[r["name"]]
+        emit(dict(phase="kernel", **r))
+    emit({"kernels": records})
+    print(card, flush=True)
+    emit({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

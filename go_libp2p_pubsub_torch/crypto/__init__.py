@@ -1,0 +1,1 @@
+"""crypto of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,249 @@
+"""The two CUDA kernels of the GossipSub hot loop, and their wrappers.
+
+Source: ``csrc/gossip_kernels.cu``, built with ``nvcc`` for ``sm_90a``
+into the package's ``build/`` directory on first use and loaded with
+ctypes (a plain C interface: pointers from ``data_ptr()``, PyTorch's
+current stream, ``cudaGetLastError()`` returned and checked).
+
+- :func:`propagate` (kernel K1) replaces the JAX package's
+  ``ops/pallas_gossip.py:_propagate_kernel`` (launched by
+  ``propagate_packed_pallas``).  Bound on the card: device-memory bytes --
+  per peer it reads K neighbor ids, two [K] byte masks and W words of
+  possession, and writes W words thrice and K float counters thrice (the
+  sender words come from a table of N*W words that stays in L2).  Its
+  design moves the neighbor gather inside the kernel (one warp per peer,
+  lane = slot), so the [N, K, W] incoming cube that the TPU design writes
+  to device memory and reads back is never stored.
+- :func:`exchange_select` (kernel K2) replaces
+  ``ops/pallas_gossip.py:_exchange_kernel`` (launched by
+  ``_exchange_call`` from ``gossip_exchange_packed_pallas``).  Bound:
+  device-memory bytes -- K advertiser ids and three [K] byte masks in, W
+  words of dedup view, K float promise counts out.  It takes the accept
+  and serve masks per slot ([N, K] bytes) and gathers the advertised
+  words itself, where the TPU design reads three [N, K*W] word cubes.
+
+Beside each kernel is its plain PyTorch version (``ops/gossip_packed.py``:
+``propagate_packed`` and ``exchange_select``, in the kernel's layout).  A
+wrapper runs the plain version only when its tensors lie on the CPU; on
+CUDA tensors it launches the kernel or raises.  Each wrapper counts its
+launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from typing import Optional, Tuple
+
+import torch
+
+from . import gossip_packed
+from .gossip_packed import PropagatePackedOut
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG_DIR, "csrc", "gossip_kernels.cu")
+BUILD_DIR = os.path.join(_PKG_DIR, "build")
+LIB_PATH = os.path.join(BUILD_DIR, "libgossip_kernels.so")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+MAX_SLOTS = 32  # one warp per peer, lane = slot
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc failed to build the kernel library."""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise KernelBuildError("nvcc not found (needs the CUDA toolkit)")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile ``csrc/gossip_kernels.cu`` into ``build/`` (always) and
+    return nvcc's output (``-Xptxas -v`` register/spill report when
+    ``verbose``)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-o", tmp, SOURCE]
+    if verbose:
+        cmd[1:1] = ["-Xptxas", "-v"]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, LIB_PATH)
+    return proc.stdout + proc.stderr
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        if not os.path.exists(LIB_PATH) or (
+            os.path.getmtime(SOURCE) > os.path.getmtime(LIB_PATH)
+        ):
+            build()
+        lib = ctypes.CDLL(LIB_PATH)
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.gossip_propagate.argtypes = [vp] * 15 + [ci, ci, ci, vp]
+        lib.gossip_propagate.restype = ci
+        lib.gossip_exchange.argtypes = [vp] * 9 + [ci] * 5 + [vp]
+        lib.gossip_exchange.restype = ci
+        _lib = lib
+        return lib
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(code: int, what: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def propagate(
+    mesh: torch.Tensor,       # bool[N, K]
+    nbrs: torch.Tensor,       # int32[N, K]
+    edge_live: torch.Tensor,  # bool[N, K]
+    alive: torch.Tensor,      # bool[N]
+    have_w: torch.Tensor,     # int32[N, W]
+    fresh_w: torch.Tensor,    # int32[N, W]
+    valid_w: torch.Tensor,    # int32[W]
+    fresh_src: Optional[torch.Tensor] = None,  # int32[N, K, W]
+    idontwant: bool = False,
+    idw_have_w: Optional[torch.Tensor] = None,  # int32[N, W]
+) -> PropagatePackedOut:
+    """One eager-push round (kernel K1; same contract as
+    ``gossip_packed.propagate_packed``)."""
+    if have_w.device.type == "cpu":
+        return gossip_packed.propagate_packed(
+            mesh, nbrs, edge_live, alive, have_w, fresh_w, valid_w,
+            fresh_src=fresh_src, idontwant=idontwant, idw_have_w=idw_have_w)
+    if have_w.device.type != "cuda":
+        raise ValueError(f"propagate: unsupported device {have_w.device}")
+    n, k = nbrs.shape
+    w = have_w.shape[1]
+    if k > MAX_SLOTS:
+        raise ValueError(f"propagate: K={k} > {MAX_SLOTS} slots per peer")
+    dev = have_w.device
+    for name, t, dt, shape in (
+        ("mesh", mesh, torch.bool, (n, k)),
+        ("nbrs", nbrs, torch.int32, (n, k)),
+        ("edge_live", edge_live, torch.bool, (n, k)),
+        ("alive", alive, torch.bool, (n,)),
+        ("have_w", have_w, torch.int32, (n, w)),
+        ("fresh_w", fresh_w, torch.int32, (n, w)),
+        ("valid_w", valid_w, torch.int32, (w,)),
+    ):
+        _check(name, t, dt, shape, dev)
+    if fresh_src is not None:
+        _check("fresh_src", fresh_src, torch.int32, (n, k, w), dev)
+    idw = None
+    if idontwant:
+        idw = have_w if idw_have_w is None else idw_have_w
+        _check("idw_have_w", idw, torch.int32, (n, w), dev)
+    lib = _load()
+    new = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
+    out = PropagatePackedOut(
+        have_w=new((n, w), torch.int32), fresh_w=new((n, w), torch.int32),
+        new_w=new((n, w), torch.int32), fmd_inc=new((n, k), torch.float32),
+        mmd_inc=new((n, k), torch.float32),
+        invalid_inc=new((n, k), torch.float32),
+    )
+    code = lib.gossip_propagate(
+        _ptr(mesh), _ptr(edge_live), _ptr(nbrs), _ptr(alive), _ptr(have_w),
+        _ptr(fresh_w), _ptr(fresh_src), _ptr(idw), _ptr(valid_w),
+        _ptr(out.have_w), _ptr(out.fresh_w), _ptr(out.new_w),
+        _ptr(out.fmd_inc), _ptr(out.mmd_inc), _ptr(out.invalid_inc),
+        n, k, w, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(code, "gossip_propagate launch")
+    propagate.launches += 1
+    return out
+
+
+propagate.launches = 0
+
+
+def exchange_select(
+    jidx_p: torch.Tensor,        # int32[N, K]
+    adv_ok_p: torch.Tensor,      # bool[N, K]
+    accept_p: torch.Tensor,      # bool[N, K]
+    serve_p: torch.Tensor,       # bool[N, K]
+    rows: torch.Tensor,          # int32[N, W]
+    have_dedup_w: torch.Tensor,  # int32[N, W]
+    alive: torch.Tensor,         # bool[N]
+    max_ihave: int,
+    max_iwant: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """IHAVE cap + IWANT select over priority-ordered slots (kernel K2;
+    same contract as ``gossip_packed.exchange_select``)."""
+    if rows.device.type == "cpu":
+        return gossip_packed.exchange_select(
+            jidx_p, adv_ok_p, accept_p, serve_p, rows, have_dedup_w, alive,
+            max_ihave, max_iwant)
+    if rows.device.type != "cuda":
+        raise ValueError(f"exchange_select: unsupported device {rows.device}")
+    n, k = jidx_p.shape
+    w = rows.shape[1]
+    if k > MAX_SLOTS:
+        raise ValueError(f"exchange_select: K={k} > {MAX_SLOTS} slots per peer")
+    dev = rows.device
+    for name, t, dt, shape in (
+        ("jidx_p", jidx_p, torch.int32, (n, k)),
+        ("adv_ok_p", adv_ok_p, torch.bool, (n, k)),
+        ("accept_p", accept_p, torch.bool, (n, k)),
+        ("serve_p", serve_p, torch.bool, (n, k)),
+        ("rows", rows, torch.int32, (n, w)),
+        ("have_dedup_w", have_dedup_w, torch.int32, (n, w)),
+        ("alive", alive, torch.bool, (n,)),
+    ):
+        _check(name, t, dt, shape, dev)
+    # The kernel's running popcounts are C ints.
+    max_ihave = min(int(max_ihave), 2**31 - 1)
+    max_iwant = min(int(max_iwant), 2**31 - 1)
+    lib = _load()
+    pend = torch.empty((n, w), dtype=torch.int32, device=dev)
+    broken_p = torch.empty((n, k), dtype=torch.float32, device=dev)
+    code = lib.gossip_exchange(
+        _ptr(jidx_p), _ptr(adv_ok_p), _ptr(accept_p), _ptr(serve_p),
+        _ptr(rows), _ptr(have_dedup_w), _ptr(alive), _ptr(pend),
+        _ptr(broken_p), n, k, w, max_ihave, max_iwant,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(code, "gossip_exchange launch")
+    exchange_select.launches += 1
+    return pend, broken_p
+
+
+exchange_select.launches = 0
+
+
+def reset_launches() -> None:
+    """Set both kernels' launch counts to 0."""
+    propagate.launches = 0
+    exchange_select.launches = 0
