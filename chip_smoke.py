@@ -10,9 +10,14 @@ Phases (each one fails the run, exit code != 0, on any error):
               ed25519 library (g++) from the repository's sources, both at
               once;
 3. kernels -- each kernel against its plain PyTorch version on the card,
-              bit for bit, in every arm and at N in {100000, 589}, K in
-              {8, 16, 32}; times both at the main path's shapes (CUDA
-              events) beside the least time the card could take;
+              bit for bit, in every arm: at N in {100000, 589}, K in
+              {8, 16, 32}, W = 4, and over every instantiation and tail
+              (W in {1, 2, 3, 4, 8}, K in {1, 8, 16, 31, 32}, N in {1,
+              589, enough peers for several tiles a block and a ragged
+              last one}); fails if ``-Xptxas -v`` reports a spill; prints
+              how many blocks of each instantiation an SM holds; times
+              both at the main path's shapes (CUDA events), warm and with
+              the L2 flushed, beside the least time the card could take;
 4. main    -- the closed loop: 128 signed envelopes (4 forged) verified by
               the native library, GossipSub(100000 peers, 32 slots, degree
               16, 128-message window) on the card, 128 publishes with the
@@ -31,6 +36,7 @@ from __future__ import annotations
 import concurrent.futures
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -40,6 +46,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 N_MSGS, N_FORGED, ROLLOUT_STEPS = 128, 4, 24
 HEADLINE = dict(n_peers=100_000, n_slots=32, conn_degree=16,
                 msg_window=N_MSGS)
+L2_FLUSH_BYTES = 128 << 20         # written before each L2-flushed launch
 
 
 def fail(msg: str) -> None:
@@ -91,19 +98,24 @@ def _max_err(out, ref) -> float:
     return err
 
 
-def _time_ms(fn, reps: int = 20, lead: bool = True) -> float:
+def _time_ms(fn, reps: int = 20, lead: bool = True, flush=None) -> float:
     """Median device time of one call (CUDA events), after a warm call.
 
     With ``lead`` each timed call is queued behind a ~10 ms device spin, so
     the host has enqueued all its launches before the first one runs and
     the events bracket device work only; without it they also take in the
-    host's time to issue the call (the GPU waits on the Python wrapper)."""
+    host's time to issue the call (the GPU waits on the Python wrapper).
+    With ``flush`` (a tensor larger than the L2) that tensor is written
+    before each timed call, so the call finds its inputs in device memory
+    and not in the L2."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for rep in range(reps):
+        if flush is not None:
+            flush.fill_(rep)
         if lead:
             torch.cuda._sleep(20_000_000)
         a = torch.cuda.Event(enable_timing=True)
@@ -183,73 +195,172 @@ def exchange_bytes(args, out) -> int:
             + int(distinct) * rows.shape[1] * 4 + _nbytes(*out))
 
 
-def check_kernels(dev):
-    """Phase 3.  Returns the per-kernel records (launches filled later)."""
+def ptxas_report(text: str):
+    """``-Xptxas -v`` output -> {kernel<W>: {registers, spill_stores,
+    spill_loads}} for the two kernels' instantiations."""
+    report, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:entry function|properties for) '?(\w+)", line)
+        if m:
+            k = re.search(r"(propagate|exchange)_kernelILi(\d+)E", m.group(1))
+            fn = f"{k.group(1)}_kernel<{k.group(2)}>" if k else None
+            if fn:
+                report.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[fn]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[fn]["spill_stores"] = int(m.group(1))
+            report[fn]["spill_loads"] = int(m.group(2))
+    return report
+
+
+def check_ptxas(text: str):
+    """Fails the run if either kernel spills; returns the report."""
+    report = ptxas_report(text)
+    kernels = {name.split("<")[0] for name in report}
+    if kernels != {"propagate_kernel", "exchange_kernel"}:
+        fail(f"ptxas reported no registers for both kernels: {report}")
+    for name, r in report.items():
+        if r.get("spill_stores", 0) or r.get("spill_loads", 0):
+            fail(f"{name} spills: {r}")
+    return report
+
+
+def _peers_many(cuda_gossip, dev) -> int:
+    """Peers for two full tiles on every persistent block of any
+    instantiation (the one an SM holds most blocks of, at one slot, sets
+    it) and a ragged third of 17 on the last one."""
+    shapes = [cuda_gossip.launch_shape(kernel, v, 1, dev)
+              for kernel in cuda_gossip.KERNELS
+              for v in (0, *cuda_gossip.VECTOR_WIDTHS)]
+    most = max(s.blocks_per_sm for s in shapes)
+    return 2 * most * cuda_gossip.sm_count(dev) * shapes[0].tile_peers + 17
+
+
+def check_cases(dev, geometries):
+    """Both kernels against their plain versions, bit for bit, in every arm
+    at each (N, K, W); returns (max errors by wrapper, cases)."""
     import torch
 
     from go_libp2p_pubsub_torch.ops import cuda_gossip
     from go_libp2p_pubsub_torch.ops import gossip_packed as plain
 
     gen = torch.Generator(device=dev)
-    w = N_MSGS // 32
     err = {"propagate": 0.0, "exchange_select": 0.0}
     cases = 0
-    for n in (HEADLINE["n_peers"], 589):
-        for k in (8, 16, 32):
-            for arm in ("plain", "idontwant", "fresh_src"):
-                gen.manual_seed(n * 100 + k)
-                args, kw = propagate_inputs(gen, n, k, w, dev, arm)
-                out = cuda_gossip.propagate(*args, **kw)
-                ref = plain.propagate_packed(*args, **kw)
-                torch.cuda.synchronize()
-                e = _max_err(out, ref)
-                if e != 0.0:
-                    fail(f"K1 {arm} N={n} K={k}: max abs err {e}")
-                err["propagate"] = max(err["propagate"], e)
-                cases += 1
-            for caps in ((3, 2), (5000, 5000)):
-                gen.manual_seed(n * 100 + k + 7)
-                args = exchange_inputs(gen, n, k, w, dev)
-                out = cuda_gossip.exchange_select(*args, *caps)
-                ref = plain.exchange_select(*args, *caps)
-                torch.cuda.synchronize()
-                e = _max_err(out, ref)
-                if e != 0.0:
-                    fail(f"K2 caps={caps} N={n} K={k}: max abs err {e}")
-                err["exchange_select"] = max(err["exchange_select"], e)
-                cases += 1
+    for n, k, w in geometries:
+        for arm in ("plain", "idontwant", "fresh_src"):
+            gen.manual_seed(n * 100 + k * 10 + w)
+            args, kw = propagate_inputs(gen, n, k, w, dev, arm)
+            out = cuda_gossip.propagate(*args, **kw)
+            ref = plain.propagate_packed(*args, **kw)
+            torch.cuda.synchronize()
+            e = _max_err(out, ref)
+            if e != 0.0:
+                fail(f"K1 {arm} N={n} K={k} W={w}: max abs err {e}")
+            err["propagate"] = max(err["propagate"], e)
+            cases += 1
+        for caps in ((3, 2), (70, 40), (5000, 5000)):
+            gen.manual_seed(n * 100 + k * 10 + w + 7)
+            args = exchange_inputs(gen, n, k, w, dev)
+            out = cuda_gossip.exchange_select(*args, *caps)
+            ref = plain.exchange_select(*args, *caps)
+            torch.cuda.synchronize()
+            e = _max_err(out, ref)
+            if e != 0.0:
+                fail(f"K2 caps={caps} N={n} K={k} W={w}: max abs err {e}")
+            err["exchange_select"] = max(err["exchange_select"], e)
+            cases += 1
+    return err, cases
 
-    # Times at the main path's shapes (N=100000, K=32, W=4).
-    n, k = HEADLINE["n_peers"], HEADLINE["n_slots"]
+
+def time_kernels(dev, flush):
+    """Both kernels at the main path's shapes (N=100000, K=32, W=4): warm
+    (back to back) and L2-flushed times, their bytes bounds, and the
+    plain versions' times."""
+    import torch
+
+    from go_libp2p_pubsub_torch.ops import cuda_gossip
+    from go_libp2p_pubsub_torch.ops import gossip_packed as plain
+
+    gen = torch.Generator(device=dev)
+    n, k, w = HEADLINE["n_peers"], HEADLINE["n_slots"], N_MSGS // 32
     gen.manual_seed(1)
     args, kw = propagate_inputs(gen, n, k, w, dev, "plain")
     k1 = lambda: cuda_gossip.propagate(*args, **kw)  # noqa: E731
-    k1_ms, k1_call = _time_ms(k1), _time_ms(k1, lead=False)
-    k1_plain = _time_ms(lambda: plain.propagate_packed(*args, **kw), reps=5)
     k1_bytes = propagate_bytes(args, kw, cuda_gossip.propagate(*args, **kw))
+    k1_ms, k1_cold = _time_ms(k1), _time_ms(k1, flush=flush)
     xargs = exchange_inputs(gen, n, k, w, dev)
     caps = (5000, 5000)
     k2 = lambda: cuda_gossip.exchange_select(*xargs, *caps)  # noqa: E731
-    k2_ms, k2_call = _time_ms(k2), _time_ms(k2, lead=False)
-    k2_plain = _time_ms(lambda: plain.exchange_select(*xargs, *caps), reps=5)
     k2_bytes = exchange_bytes(xargs, cuda_gossip.exchange_select(*xargs, *caps))
+    k2_ms, k2_cold = _time_ms(k2), _time_ms(k2, flush=flush)
+    timed = {}
+    for name, fn, ms, cold, nbytes in (
+            ("gossip_propagate", k1, k1_ms, k1_cold, k1_bytes),
+            ("gossip_exchange", k2, k2_ms, k2_cold, k2_bytes)):
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        timed[name] = dict(ms=ms, ms_l2_flushed=cold, bound_ms=bound,
+                           bound_bytes=nbytes, bound_share=bound / ms,
+                           bound_share_l2_flushed=bound / cold, fn=fn)
+    timed["gossip_propagate"]["plain"] = (
+        lambda: plain.propagate_packed(*args, **kw))
+    timed["gossip_exchange"]["plain"] = (
+        lambda: plain.exchange_select(*xargs, *caps))
+    return timed
+
+
+def check_kernels(dev, ptxas):
+    """Phase 3.  Returns the per-kernel records (launches filled later)."""
+    import torch
+
+    from go_libp2p_pubsub_torch.ops import cuda_gossip
+
+    w = N_MSGS // 32
+    many = _peers_many(cuda_gossip, dev)
+    emit(dict(phase="launch_shapes", n_slots=HEADLINE["n_slots"],
+              peers_many=many, blocks_per_sm={
+                  f"{kernel}_kernel<{v}>": cuda_gossip.launch_shape(
+                      kernel, v, HEADLINE["n_slots"], dev).blocks_per_sm
+                  for kernel in cuda_gossip.KERNELS
+                  for v in (0, *cuda_gossip.VECTOR_WIDTHS)}))
+    geometries = [(n, k, w) for n in (HEADLINE["n_peers"], 589)
+                  for k in (8, 16, 32)]
+    geometries += [(n, k, wx) for n in (1, 589, many)
+                   for k in (1, 8, 16, 31, 32) for wx in (1, 2, 3, 4, 8)]
+    err, cases = check_cases(dev, geometries)
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    timed = time_kernels(dev, flush)
+    del flush
     src = "go_libp2p_pubsub_torch/csrc/gossip_kernels.cu"
-    records = [
-        dict(name="gossip_propagate", route="cuda", source=src,
-             replaces="go_libp2p_pubsub_tpu/ops/pallas_gossip.py:77",
-             launches=0, max_abs_err=err["propagate"], ms=k1_ms,
-             plain_ms=k1_plain, bound_ms=k1_bytes / HBM_BYTES_PER_S * 1e3,
-             bound_by="bytes", library_ms=None, bound_bytes=k1_bytes,
-             call_ms=k1_call),
-        dict(name="gossip_exchange", route="cuda", source=src,
-             replaces="go_libp2p_pubsub_tpu/ops/pallas_gossip.py:212",
-             launches=0, max_abs_err=err["exchange_select"], ms=k2_ms,
-             plain_ms=k2_plain, bound_ms=k2_bytes / HBM_BYTES_PER_S * 1e3,
-             bound_by="bytes", library_ms=None, bound_bytes=k2_bytes,
-             call_ms=k2_call),
-    ]
-    for r in records:
-        r["cases"] = cases
+    records = []
+    for name, wrapper, kernel, line in (
+            ("gossip_propagate", "propagate", "propagate_kernel", 77),
+            ("gossip_exchange", "exchange_select", "exchange_kernel", 212)):
+        t = timed[name]
+        shape = cuda_gossip.launch_shape(kernel.split("_")[0], w,
+                                         HEADLINE["n_slots"], dev)
+        records.append(dict(
+            name=name, route="cuda", source=src,
+            replaces=f"go_libp2p_pubsub_tpu/ops/pallas_gossip.py:{line}",
+            launches=0, max_abs_err=err[wrapper], ms=t["ms"],
+            plain_ms=_time_ms(t["plain"], reps=5), bound_ms=t["bound_ms"],
+            bound_by="bytes", library_ms=None, bound_bytes=t["bound_bytes"],
+            call_ms=_time_ms(t["fn"], lead=False),
+            ms_l2_flushed=t["ms_l2_flushed"], bound_share=t["bound_share"],
+            bound_share_l2_flushed=t["bound_share_l2_flushed"],
+            registers=ptxas[f"{kernel}<{w}>"]["registers"],
+            tile_peers=shape.tile_peers, blocks_per_sm=shape.blocks_per_sm,
+            grid=cuda_gossip.grid_blocks(HEADLINE["n_peers"], shape,
+                                         cuda_gossip.sm_count(dev)),
+            cases=cases))
     return records
 
 
@@ -346,6 +457,7 @@ def main_path(dev, card: str):
         fail("native verdicts do not match the forged set")
 
     cuda_gossip.reset_launches()
+    torch.cuda.reset_peak_memory_stats(dev)
     gs = GossipSub(device=dev, **HEADLINE)
     t0 = time.perf_counter()
     st = gs.init(seed=0)
@@ -423,13 +535,11 @@ def main() -> None:
     with concurrent.futures.ThreadPoolExecutor(2) as ex:
         kernels = ex.submit(cuda_gossip.build, True)
         ed = ex.submit(native.build)
-        ptxas = kernels.result()
+        ptxas = check_ptxas(kernels.result())
         ed.result()
-    emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              ptxas=[ln.strip() for ln in ptxas.splitlines()
-                     if "registers" in ln or "spill" in ln]))
+    emit(dict(phase="build", seconds=time.perf_counter() - t0, ptxas=ptxas))
 
-    records = check_kernels(dev)
+    records = check_kernels(dev, ptxas)
     launches = main_path(dev, card)
     for r in records:
         r["launches"] = launches[r["name"]]

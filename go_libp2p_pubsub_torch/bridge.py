@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from .config import GossipSubParams, ScoreParams
-from .models.gossipsub import GossipState
+from .models.gossipsub import GossipState, resolve_device
 from .ops.scoring import GlobalCounters, TopicCounters
 
 # Leaves the JAX package stores as uint32 and the port as int32 patterns.
@@ -45,8 +45,10 @@ def _to_torch(name: str, leaf, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def state_from_jax(st: Any, device="cpu") -> GossipState:
-    """Reference ``GossipState`` -> the port's, on ``device``."""
+def state_from_jax(st: Any, device="cuda") -> GossipState:
+    """Reference ``GossipState`` -> the port's, on ``device`` (the card by
+    default, like ``GossipSub``; raises without one)."""
+    device = resolve_device(device)
     fields: Dict[str, Any] = {}
     for name in GossipState._fields:
         leaf = getattr(st, name)

@@ -11,9 +11,9 @@ current stream, ``cudaGetLastError()`` returned and checked).
   per peer it reads K neighbor ids, two [K] byte masks and W words of
   possession, and writes W words thrice and K float counters thrice (the
   sender words come from a table of N*W words that stays in L2).  Its
-  design moves the neighbor gather inside the kernel (one warp per peer,
-  lane = slot), so the [N, K, W] incoming cube that the TPU design writes
-  to device memory and reads back is never stored.
+  design moves the neighbor gather inside the kernel (a thread per peer
+  walks its delivering slots), so the [N, K, W] incoming cube that the TPU
+  design writes to device memory and reads back is never stored.
 - :func:`exchange_select` (kernel K2) replaces
   ``ops/pallas_gossip.py:_exchange_kernel`` (launched by
   ``_exchange_call`` from ``gossip_exchange_packed_pallas``).  Bound:
@@ -21,6 +21,15 @@ current stream, ``cudaGetLastError()`` returned and checked).
   words of dedup view, K float promise counts out.  It takes the accept
   and serve masks per slot ([N, K] bytes) and gathers the advertised
   words itself, where the TPU design reads three [N, K*W] word cubes.
+
+Both kernels give each peer a thread and run on a persistent grid of a
+few blocks per SM that walk tiles of peers (see the source).  The host
+side of a launch is plain Python here, so the CPU tests reach it:
+:func:`kernel_variant` picks W's instantiation and :func:`grid_blocks`
+sizes the grid from the card's SM count and the instantiation's launch
+shape (:func:`launch_shape`: its tile, and how many of its blocks an SM
+holds, which the CUDA occupancy calculator reads from its registers and
+shared memory).
 
 Beside each kernel is its plain PyTorch version (``ops/gossip_packed.py``:
 ``propagate_packed`` and ``exchange_select``, in the kernel's layout).  A
@@ -36,7 +45,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,14 +57,50 @@ SOURCE = os.path.join(_PKG_DIR, "csrc", "gossip_kernels.cu")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libgossip_kernels.so")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-MAX_SLOTS = 32  # one warp per peer, lane = slot
+MAX_SLOTS = 32  # a peer's slots are the bits of one 32-bit mask
+VECTOR_WIDTHS = (1, 2, 4, 8)  # W with an instantiation of their own
+KERNELS = ("propagate", "exchange")  # K1, K2: the library's kernel index
+
+
+class LaunchShape(NamedTuple):
+    """One instantiation's launch shape on a card (``gossip_launch_shape``)."""
+
+    tile_peers: int     # peers a block takes per tile (one a thread)
+    blocks_per_sm: int  # blocks an SM holds at once
+
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_sm_counts: Dict[int, int] = {}
+_shapes: Dict[Tuple[str, int, int, int], LaunchShape] = {}
 
 
 class KernelBuildError(RuntimeError):
     """nvcc failed to build the kernel library."""
+
+
+def kernel_variant(w: int, addresses: Sequence[Optional[int]]) -> int:
+    """W's instantiation (1, 2, 4 or 8), or 0 for the generic one.
+
+    ``addresses`` are the device addresses of the tensors the kernel reads
+    as W-word vectors (the gathered table and the other [N, W] and [W]
+    inputs).  The generic instantiation takes any other W, and any address
+    a vector load would fault on (not a multiple of ``min(16, 4 * w)``
+    bytes)."""
+    if w not in VECTOR_WIDTHS:
+        return 0
+    align = min(16, 4 * w)
+    if any(a is not None and a % align for a in addresses):
+        return 0
+    return w
+
+
+def grid_blocks(n: int, shape: LaunchShape, sm_count: int) -> int:
+    """Persistent blocks for ``n`` peers: one per tile, at most
+    ``blocks_per_sm`` on each of ``sm_count`` SMs (each block then walks
+    every ``grid``-th tile)."""
+    tiles = -(-n // shape.tile_peers)
+    return max(1, min(tiles, shape.blocks_per_sm * sm_count))
 
 
 def _nvcc() -> str:
@@ -97,12 +142,43 @@ def _load() -> ctypes.CDLL:
             build()
         lib = ctypes.CDLL(LIB_PATH)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.gossip_propagate.argtypes = [vp] * 15 + [ci, ci, ci, vp]
+        lib.gossip_propagate.argtypes = [vp] * 15 + [ci] * 5 + [vp]
         lib.gossip_propagate.restype = ci
-        lib.gossip_exchange.argtypes = [vp] * 9 + [ci] * 5 + [vp]
+        lib.gossip_exchange.argtypes = [vp] * 9 + [ci] * 7 + [vp]
         lib.gossip_exchange.restype = ci
+        lib.gossip_launch_shape.argtypes = [ci] * 3 + [ctypes.POINTER(ci)]
+        lib.gossip_launch_shape.restype = ci
         _lib = lib
         return lib
+
+
+def _index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def launch_shape(kernel: str, variant: int, k: int,
+                 dev: torch.device) -> LaunchShape:
+    """The launch shape of ``kernel``'s (``"propagate"`` or ``"exchange"``)
+    instantiation ``variant`` at ``k`` slots on CUDA device ``dev``
+    (cached)."""
+    key = (kernel, variant, k, _index(dev))
+    if key not in _shapes:
+        lib = _load()
+        out = (ctypes.c_int * 2)()
+        with torch.cuda.device(key[3]):
+            _raise_on(lib.gossip_launch_shape(KERNELS.index(kernel), variant,
+                                              k, out), "gossip_launch_shape")
+        _shapes[key] = LaunchShape(*out)
+    return _shapes[key]
+
+
+def sm_count(dev: torch.device) -> int:
+    """Streaming multiprocessors of CUDA device ``dev`` (cached)."""
+    index = _index(dev)
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -167,6 +243,12 @@ def propagate(
         idw = have_w if idw_have_w is None else idw_have_w
         _check("idw_have_w", idw, torch.int32, (n, w), dev)
     lib = _load()
+    variant = kernel_variant(w, [
+        (fresh_w if fresh_src is None else fresh_src).data_ptr(),
+        valid_w.data_ptr(), have_w.data_ptr(),
+        None if idw is None else idw.data_ptr()])
+    grid = grid_blocks(n, launch_shape("propagate", variant, k, dev),
+                       sm_count(dev))
     new = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
     out = PropagatePackedOut(
         have_w=new((n, w), torch.int32), fresh_w=new((n, w), torch.int32),
@@ -179,7 +261,7 @@ def propagate(
         _ptr(fresh_w), _ptr(fresh_src), _ptr(idw), _ptr(valid_w),
         _ptr(out.have_w), _ptr(out.fresh_w), _ptr(out.new_w),
         _ptr(out.fmd_inc), _ptr(out.mmd_inc), _ptr(out.invalid_inc),
-        n, k, w, torch.cuda.current_stream(dev).cuda_stream,
+        n, k, w, variant, grid, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(code, "gossip_propagate launch")
     propagate.launches += 1
@@ -227,12 +309,15 @@ def exchange_select(
     max_ihave = min(int(max_ihave), 2**31 - 1)
     max_iwant = min(int(max_iwant), 2**31 - 1)
     lib = _load()
+    variant = kernel_variant(w, [rows.data_ptr(), have_dedup_w.data_ptr()])
+    grid = grid_blocks(n, launch_shape("exchange", variant, k, dev),
+                       sm_count(dev))
     pend = torch.empty((n, w), dtype=torch.int32, device=dev)
     broken_p = torch.empty((n, k), dtype=torch.float32, device=dev)
     code = lib.gossip_exchange(
         _ptr(jidx_p), _ptr(adv_ok_p), _ptr(accept_p), _ptr(serve_p),
         _ptr(rows), _ptr(have_dedup_w), _ptr(alive), _ptr(pend),
-        _ptr(broken_p), n, k, w, max_ihave, max_iwant,
+        _ptr(broken_p), n, k, w, max_ihave, max_iwant, variant, grid,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(code, "gossip_exchange launch")

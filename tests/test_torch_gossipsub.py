@@ -65,7 +65,7 @@ def test_bridge_round_trips_a_reference_state():
     ga = JG(use_pallas=False, **KW)
     sa = ga.init(seed=3)
     sa = ga.publish(sa, jnp.int32(5), jnp.int32(0), jnp.asarray(True))
-    st = bridge.state_from_jax(sa)
+    st = bridge.state_from_jax(sa, device="cpu")
     assert st.nbrs.dtype == torch.uint16 and st.have_w.dtype == torch.int32
     assert isinstance(st.step, int)
     back = bridge.state_to_numpy(st)
@@ -101,7 +101,7 @@ def test_recorded_rollout_with_kill_matches_reference(fused):
     gt = TG(device="cpu", **dict(kw, params=bridge.params_from(params),
                                  score_params=bridge.params_from(sparams)))
     sa = ga.init(seed=3)
-    st = bridge.state_from_jax(sa)
+    st = bridge.state_from_jax(sa, device="cpu")
     valid0 = np.asarray(sa.nbr_valid)
     for s in range(6):
         valid = s != 2

@@ -1,7 +1,11 @@
 """The port's two CUDA kernels held against their plain PyTorch versions on
 an NVIDIA card, bit for bit, in every arm (K1: plain, IDONTWANT, per-edge
-sender planes; K2: binding and non-binding caps) at N in {200, 512, 589},
-K in {8, 16, 32} and W in {2, 4, 8} message words.
+sender planes; K2: binding and non-binding caps).  The geometries reach
+every instantiation (W in {1, 2, 4, 8} message words, and W = 3 through
+the generic one), K in {1, 8, 16, 31, 32} slots, and N from one peer
+through a grid whose persistent blocks walk several tiles each and end on
+a ragged one ("many"); tables read through a misaligned view take the
+generic instantiation.
 
 These tests need the card and ``nvcc``; elsewhere they skip.  This file
 imports only torch and the port, so it runs where JAX is not installed:
@@ -14,7 +18,19 @@ import torch
 from go_libp2p_pubsub_torch.ops import cuda_gossip
 from go_libp2p_pubsub_torch.ops import gossip_packed as tgp
 
-GEOMETRIES = [(0, 512, 32, 4), (1, 200, 8, 2), (2, 589, 16, 8)]
+# (seed, N, K, W); N "many" is sized on the card (_peers).
+GEOMETRIES = [
+    (0, 512, 32, 4), (1, 200, 8, 2), (2, 589, 16, 8),
+    # every W instantiation, and W = 3 through the generic one
+    (3, 589, 32, 1), (4, 589, 32, 2), (5, 589, 32, 3), (6, 589, 32, 8),
+    # K below a warp, down to one slot
+    (7, 589, 1, 4), (8, 589, 8, 4), (9, 589, 16, 4), (10, 589, 31, 4),
+    # one peer
+    (11, 1, 32, 4), (12, 1, 31, 3), (13, 1, 1, 1),
+    # several tiles a block and a ragged last tile
+    (14, "many", 32, 4), (15, "many", 16, 8), (16, "many", 31, 3),
+    (17, "many", 8, 1), (18, "many", 1, 2),
+]
 CAPS = [(3, 2), (70, 40), (5000, 5000)]
 
 
@@ -23,6 +39,28 @@ def _cuda() -> torch.device:
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no "
                     "CPU mode")
     return torch.device("cuda")
+
+
+def _peers(n, dev) -> int:
+    """``n``, or for "many" a count that gives every persistent block of
+    any instantiation's grid two full tiles and the last block a third of
+    17 peers."""
+    if n != "many":
+        return n
+    shapes = [cuda_gossip.launch_shape(kernel, v, 1, dev)
+              for kernel in cuda_gossip.KERNELS
+              for v in (0, *cuda_gossip.VECTOR_WIDTHS)]
+    most = max(s.blocks_per_sm for s in shapes)
+    return 2 * most * cuda_gossip.sm_count(dev) * shapes[0].tile_peers + 17
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose storage starts one element past a
+    16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 def _rand(gen, shape, p=None, dtype=torch.int32, high=None):
@@ -49,6 +87,7 @@ def _same(out, ref):
 @pytest.mark.parametrize("seed,n,k,w", GEOMETRIES)
 def test_propagate_kernel_matches_plain(arm, seed, n, k, w):
     dev = _cuda()
+    n = _peers(n, dev)
     gen = torch.Generator().manual_seed(seed)
     args = (
         _rand(gen, (n, k), p=0.4), _rand(gen, (n, k), high=n + 1) - 1,
@@ -76,6 +115,7 @@ def test_propagate_kernel_matches_plain(arm, seed, n, k, w):
 @pytest.mark.parametrize("seed,n,k,w", GEOMETRIES)
 def test_exchange_kernel_matches_plain(caps, seed, n, k, w):
     dev = _cuda()
+    n = _peers(n, dev)
     gen = torch.Generator().manual_seed(seed)
     args = (
         _rand(gen, (n, k), high=n), _rand(gen, (n, k), p=0.3),
@@ -89,6 +129,38 @@ def test_exchange_kernel_matches_plain(caps, seed, n, k, w):
     torch.cuda.synchronize()
     assert cuda_gossip.exchange_select.launches == before + 1
     _same(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [2, 4, 8])
+def test_misaligned_tables_take_the_generic_kernel(w):
+    """Every input of both kernels through a view one element past a
+    16-byte boundary: the W-word tables send the call to the generic
+    instantiation, the byte masks to the byte-at-a-time mask build."""
+    dev = _cuda()
+    n, k = 700, 32
+    gen = torch.Generator().manual_seed(40 + w)
+    args = (
+        _rand(gen, (n, k), p=0.4), _rand(gen, (n, k), high=n + 1) - 1,
+        _rand(gen, (n, k), p=0.9), _rand(gen, (n,), p=0.9),
+        _rand(gen, (n, w)) & _rand(gen, (n, w)), _rand(gen, (n, w)),
+        _rand(gen, (w,)),
+    )
+    idw = args[4] & _rand(gen, (n, w))
+    on = [_misaligned(a.to(dev)) for a in args]
+    assert cuda_gossip.kernel_variant(w, [on[5].data_ptr()]) == 0
+    out = cuda_gossip.propagate(*on, idontwant=True,
+                                idw_have_w=_misaligned(idw.to(dev)))
+    _same(out, tgp.propagate_packed(*args, idontwant=True, idw_have_w=idw))
+    xargs = (
+        _rand(gen, (n, k), high=n), _rand(gen, (n, k), p=0.3),
+        _rand(gen, (n, k), p=0.8), _rand(gen, (n, k), p=0.66),
+        _rand(gen, (n, w)) & _rand(gen, (n, w)),
+        _rand(gen, (n, w)) & _rand(gen, (n, w)), _rand(gen, (n,), p=0.9),
+    )
+    out = cuda_gossip.exchange_select(
+        *(_misaligned(a.to(dev)) for a in xargs), 70, 40)
+    _same(out, tgp.exchange_select(*xargs, 70, 40))
 
 
 @pytest.mark.cuda
