@@ -1,27 +1,29 @@
 """ctypes binding of the native C++ batched ed25519 (``native/ed25519/``).
 
 A copy of the JAX package's ``crypto/native.py`` (which the port cannot
-import without pulling in JAX), plus ``signing_bytes`` and ``Envelope``
-from its ``crypto/pipeline.py``.  The library is built from the shared
+import without pulling in JAX); it re-exports ``signing_bytes`` and
+``Envelope`` from the port's ``crypto/pipeline.py``.  The library is built
+from the shared
 source ``native/ed25519/ed25519.cpp`` with ``g++`` on first use, into the
 port's own build directory (``go_libp2p_pubsub_torch/build/``), never
 next to the sources.
 
 API (batched and thread-parallel in C++): :func:`verify_batch`,
-:func:`sign_batch`, :func:`public_key_batch`.
+:func:`sign_batch`, :func:`public_key_batch`; one at a time:
+:func:`public_key`, :func:`sign`; :func:`available`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import struct
 import subprocess
 import threading
-from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 import numpy as np
+
+from .pipeline import Envelope, signing_bytes  # noqa: F401  (re-exported)
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(os.path.dirname(_PKG_DIR), "native", "ed25519")
@@ -79,6 +81,15 @@ def _load() -> ctypes.CDLL:
         lib.ed25519_public_key_batch.restype = None
         _lib = lib
         return lib
+
+
+def available() -> bool:
+    """True if the native library is present or buildable."""
+    try:
+        _load()
+        return True
+    except (NativeBuildError, OSError):
+        return False
 
 
 def _as_u8p(a: np.ndarray):
@@ -172,39 +183,15 @@ def public_key_batch(
     return [raw[32 * i : 32 * (i + 1)] for i in range(n)]
 
 
-def signing_bytes(topic: str, seqno: int, payload: bytes) -> bytes:
-    """The exact byte string a publisher signs (domain-separated by topic
-    and sequence number)."""
-    t = topic.encode()
-    return struct.pack("<I", len(t)) + t + struct.pack("<Q", seqno) + payload
+def public_key(seed: bytes) -> bytes:
+    """The 32-byte public key of one 32-byte seed."""
+    if len(seed) != 32:
+        raise ValueError(f"seed must be 32 bytes, got {len(seed)}")
+    return public_key_batch([seed], threads=1)[0]
 
 
-@dataclass(frozen=True)
-class Envelope:
-    """A signed message as it travels the wire: payload + authenticator."""
-
-    topic: str
-    seqno: int
-    payload: bytes
-    pubkey: bytes  # 32B ed25519
-    signature: bytes  # 64B
-
-    def to_wire(self) -> bytes:
-        return (
-            signing_bytes(self.topic, self.seqno, b"")
-            + self.pubkey
-            + self.signature
-            + self.payload
-        )
-
-    @classmethod
-    def from_wire(cls, raw: bytes) -> "Envelope":
-        (tlen,) = struct.unpack_from("<I", raw, 0)
-        topic = raw[4 : 4 + tlen].decode()
-        off = 4 + tlen
-        (seqno,) = struct.unpack_from("<Q", raw, off)
-        off += 8
-        pubkey = raw[off : off + 32]
-        signature = raw[off + 32 : off + 96]
-        payload = raw[off + 96 :]
-        return cls(topic, seqno, payload, pubkey, signature)
+def sign(seed: bytes, msg: bytes) -> bytes:
+    """The 64-byte signature of ``msg`` under one 32-byte seed."""
+    if len(seed) != 32:
+        raise ValueError(f"seed must be 32 bytes, got {len(seed)}")
+    return sign_batch([seed], [msg], threads=1)[0]

@@ -42,21 +42,19 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import subprocess
 import threading
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from . import gossip_packed
+from . import cuda_build, gossip_packed
+from .cuda_build import KernelBuildError  # noqa: F401  (re-exported)
+from .cuda_build import device_index as _index
+from .cuda_build import raise_on as _raise_on
 from .gossip_packed import PropagatePackedOut
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "gossip_kernels.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "build")
-LIB_PATH = os.path.join(BUILD_DIR, "libgossip_kernels.so")
-ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+SOURCE = os.path.join(cuda_build.CSRC_DIR, "gossip_kernels.cu")
+LIB_PATH = os.path.join(cuda_build.BUILD_DIR, "libgossip_kernels.so")
 MAX_SLOTS = 32  # a peer's slots are the bits of one 32-bit mask
 VECTOR_WIDTHS = (1, 2, 4, 8)  # W with an instantiation of their own
 KERNELS = ("propagate", "exchange")  # K1, K2: the library's kernel index
@@ -73,10 +71,6 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _sm_counts: Dict[int, int] = {}
 _shapes: Dict[Tuple[str, int, int, int], LaunchShape] = {}
-
-
-class KernelBuildError(RuntimeError):
-    """nvcc failed to build the kernel library."""
 
 
 def kernel_variant(w: int, addresses: Sequence[Optional[int]]) -> int:
@@ -103,32 +97,11 @@ def grid_blocks(n: int, shape: LaunchShape, sm_count: int) -> int:
     return max(1, min(tiles, shape.blocks_per_sm * sm_count))
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise KernelBuildError("nvcc not found (needs the CUDA toolkit)")
-
-
 def build(verbose: bool = False) -> str:
     """Compile ``csrc/gossip_kernels.cu`` into ``build/`` (always) and
     return nvcc's output (``-Xptxas -v`` register/spill report when
     ``verbose``)."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp, SOURCE]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, LIB_PATH)
-    return proc.stdout + proc.stderr
+    return cuda_build.build(SOURCE, LIB_PATH, verbose)
 
 
 def _load() -> ctypes.CDLL:
@@ -136,9 +109,7 @@ def _load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        if not os.path.exists(LIB_PATH) or (
-            os.path.getmtime(SOURCE) > os.path.getmtime(LIB_PATH)
-        ):
+        if cuda_build.stale(SOURCE, LIB_PATH):
             build()
         lib = ctypes.CDLL(LIB_PATH)
         vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -150,10 +121,6 @@ def _load() -> ctypes.CDLL:
         lib.gossip_launch_shape.restype = ci
         _lib = lib
         return lib
-
-
-def _index(dev: torch.device) -> int:
-    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def launch_shape(kernel: str, variant: int, k: int,
@@ -194,11 +161,6 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
-
-
-def _raise_on(code: int, what: str) -> None:
-    if code != 0:
-        raise RuntimeError(f"{what}: CUDA error {code}")
 
 
 def propagate(
