@@ -44,7 +44,24 @@ Phases (each one fails the run, exit code != 0, on any error):
               delivery stats; asserts delivery, that no forged message
               spread, and that the timed rollout launched K1 24 times and
               K2 3 times.  A small model run on the card and on the CPU
-              must agree leaf for leaf.
+              must agree leaf for leaf;
+6. scenario -- the scenario event path: every sim-supported gossipsub
+              campaign of the canon (14) and the composite attack
+              campaign at 2,000 peers (as committed, and with per-edge
+              delay: ``max_edge_delay=2``, a seeded random 0-2 delay
+              plane, the eclipse wave dropped) through
+              ``scenario.run_scenario`` on the card and on the CPU, equal
+              in verdict, every record channel and every state leaf; then
+              ``compile_scenario`` of the committed 100,000-peer trace the
+              JAX package wrote (timed), ``replay_trace`` on that compiled
+              copy, which must match the trace channel for channel with
+              the same verdict and is also the warm run, a timed
+              ``rollout_events`` of it (wall time ending in the record's
+              read to the host), asserting 48 K1, 6 K2 and no E1 launches
+              and that no invalid message reached a peer other than its
+              publisher, and one more run under
+              ``torch.cuda.set_sync_debug_mode("warn")`` counting the
+              operations that synchronise.
 
 The last line is ``{"ok": true, "device": {...}}``; nothing else is
 printed after a failure.
@@ -689,6 +706,15 @@ def signed_window(rng):
     return envs, forged
 
 
+def _leaves(x, pre=""):
+    for name in type(x)._fields:
+        v = getattr(x, name)
+        if hasattr(v, "_fields"):
+            yield from _leaves(v, pre + name + ".")
+        else:
+            yield pre + name, v
+
+
 def small_model_agrees(dev) -> int:
     """A 2,000-peer model from one seed, on the card (kernels) and on the
     CPU (plain versions): every leaf and record channel must be equal."""
@@ -708,18 +734,10 @@ def small_model_agrees(dev) -> int:
         results.append((bridge.state_to_numpy(st), rec))
     (a, ra), (b, rb) = results
 
-    def leaves(x, pre=""):
-        for name in type(x)._fields:
-            v = getattr(x, name)
-            if hasattr(v, "_fields"):
-                yield from leaves(v, pre + name + ".")
-            else:
-                yield pre + name, v
-
     import numpy as np
 
     n = 0
-    for (name, x), (_, y) in zip(leaves(a), leaves(b)):
+    for (name, x), (_, y) in zip(_leaves(a), _leaves(b)):
         x, y = np.asarray(x), np.asarray(y)
         if x.dtype == np.float32:
             x, y = x.view(np.int32), y.view(np.int32)
@@ -838,6 +856,178 @@ def main_path(dev, card: str):
     return launches
 
 
+# -- phase 6: the scenario event path ------------------------------------------
+
+
+SCENARIO_N = 2000            # the composite's width for card-vs-CPU runs
+SCENARIO_STEPS = 48
+
+
+def _same_result(a, b, what: str) -> int:
+    """Two ``ScenarioResult``s (card, CPU): verdicts, every record channel
+    and every final state leaf bit for bit.  Returns the count compared."""
+    import numpy as np
+
+    from go_libp2p_pubsub_torch import bridge
+
+    if a.verdict.to_dict() != b.verdict.to_dict():
+        fail(f"{what}: card and CPU verdicts differ")
+    if sorted(a.record) != sorted(b.record):
+        fail(f"{what}: card and CPU record channels differ")
+    n = 0
+    for name in a.record:
+        x, y = np.asarray(a.record[name]), np.asarray(b.record[name])
+        if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+            fail(f"{what}: card and CPU differ in record channel {name}")
+        n += 1
+    for (name, x), (_, y) in zip(
+            _leaves(bridge.state_to_numpy(a.final_state)),
+            _leaves(bridge.state_to_numpy(b.final_state))):
+        x, y = np.asarray(x), np.asarray(y)
+        if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+            fail(f"{what}: card and CPU differ in state leaf {name}")
+        n += 1
+    return n
+
+
+def _edge_delay_campaign(device, n_peers: int):
+    """The composite with per-edge delay: ``max_edge_delay=2``, a seeded
+    random 0-2 plane on the compiled state, and no eclipse wave (its
+    silence needs the ideal fabric)."""
+    import dataclasses
+
+    import numpy as np
+
+    from go_libp2p_pubsub_torch import scenario
+    from go_libp2p_pubsub_torch.scenario.campaign import campaign_spec
+
+    spec = campaign_spec(n_peers)
+    spec = dataclasses.replace(
+        spec, name=spec.name + "_edge_delay",
+        model=dict(spec.model, max_edge_delay=2),
+        attacks=[w for w in spec.attacks if w.kind != "eclipse"],
+        slo=dataclasses.replace(spec.slo, min_final_target_honest_edges=None))
+    comp = scenario.compile_scenario(spec, device=device)
+    plane = np.random.default_rng(4).integers(
+        0, 3, (comp.model.n, comp.model.k))
+    comp.state = comp.model.set_edge_delay(comp.state, plane)
+    return scenario.run_scenario(comp)
+
+
+def scenario_phase(dev, card: str):
+    """Phase 6.  Returns the kernels' launches in the timed campaign."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_torch import scenario
+    from go_libp2p_pubsub_torch.ops import bitpack, cuda_ed25519, cuda_gossip
+    from go_libp2p_pubsub_torch.scenario.campaign import (
+        campaign_spec, load_trace)
+    from go_libp2p_pubsub_torch.scenario.runner import flight_to_jsonable
+
+    t0 = time.perf_counter()
+    names = [name for name in scenario.CANON
+             if scenario.build(name).family == "gossipsub"
+             and scenario.sim_supported(scenario.build(name))]
+    if len(names) != 14:
+        fail(f"expected 14 sim gossipsub canon campaigns, found {len(names)}")
+    compared, verdicts, canon_s = 0, {}, {}
+    for name in names:
+        t1 = time.perf_counter()
+        card_res = scenario.run_scenario(scenario.build(name), device=dev)
+        canon_s[name] = time.perf_counter() - t1
+        compared += _same_result(card_res, scenario.run_scenario(
+            scenario.build(name), device="cpu"), name)
+        verdicts[name] = card_res.verdict.passed
+    composite = {}
+    for label, run in (
+            ("composite", lambda d: scenario.run_scenario(
+                campaign_spec(SCENARIO_N), device=d)),
+            ("composite_edge_delay",
+             lambda d: _edge_delay_campaign(d, SCENARIO_N))):
+        cuda_gossip.reset_launches()
+        card_res = run(dev)
+        if cuda_gossip.propagate.launches != SCENARIO_STEPS:
+            fail(f"{label}: K1 launched {cuda_gossip.propagate.launches} "
+                 f"times on the card, not {SCENARIO_STEPS}")
+        compared += _same_result(card_res, run("cpu"), label)
+        composite[label] = card_res.verdict.passed
+    small_s = time.perf_counter() - t0
+
+    # The committed 100,000-peer trace the JAX package wrote.
+    doc = load_trace()
+    spec = campaign_spec(doc=doc)
+    t1 = time.perf_counter()
+    comp = scenario.compile_scenario(spec, device=dev)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t1
+    # The replay runs that compiled campaign: it is also the warm run, with
+    # every kernel and operation at the timed run's shapes.
+    result, matched, mismatched = scenario.replay_trace(
+        doc, device=dev, compiled=comp)
+    if not matched:
+        fail(f"100k replay: mismatched channels {mismatched}")
+    if result.verdict.to_dict() != doc["verdict"]:
+        fail("100k replay: the verdict differs from the trace's")
+    model = comp.model
+    run = lambda: model.rollout_events(  # noqa: E731
+        comp.state, comp.events, attackers=comp.attackers,
+        target=comp.target, record=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_gossip.reset_launches()
+    cuda_ed25519.reset_launches()
+    t1 = time.perf_counter()
+    final, rec = run()      # the record is read to the host: a synchronise
+    rollout_s = time.perf_counter() - t1
+    launches = {"gossip_propagate": cuda_gossip.propagate.launches,
+                "gossip_exchange": cuda_gossip.exchange_select.launches,
+                "ed25519_verify": cuda_ed25519.verify.launches}
+    # Campaign messages carry no signatures (as on the reference): E1 has
+    # no work on this path.
+    if launches != {"gossip_propagate": SCENARIO_STEPS,
+                    "gossip_exchange": SCENARIO_STEPS // 8,
+                    "ed25519_verify": 0}:
+        fail(f"timed campaign launched {launches}, expected "
+             f"{SCENARIO_STEPS} K1, {SCENARIO_STEPS // 8} K2 and no E1")
+    if flight_to_jsonable(rec) != doc["flight"]:
+        fail("the timed campaign's record differs from the trace's")
+    # Once more under the sync-debug mode, which costs host time: every
+    # operation that would stall the host on the device warns.  The
+    # record's read after the last round waits on an event, which the
+    # mode does not count.
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync_warnings = sum("synchronizing CUDA operation" in str(w.message)
+                        for w in caught)
+    have = bitpack.unpack(final.have_w, model.m)
+    held = have.sum(dim=0)
+    invalid = final.msg_used & ~final.msg_valid
+    if int(invalid.sum()) == 0 or int(held[invalid].max()) > 1:
+        fail("an invalid message reached a peer other than its publisher")
+    emit(dict(
+        phase="scenario", canon=verdicts, canon_card_s=canon_s,
+        composite=composite, composite_n_peers=SCENARIO_N,
+        values_compared=compared,
+        small_runs_s=small_s, n_peers=model.n, rounds=SCENARIO_STEPS,
+        n_publishes=comp.n_publishes, compile_scenario_s=compile_s,
+        rollout_ms=rollout_s * 1e3,
+        rounds_per_s=SCENARIO_STEPS / rollout_s, launches=launches,
+        verdict=result.verdict.to_dict(), mismatched_channels=mismatched,
+        tolerance_channels=[], sync_debug_warnings=sync_warnings,
+        invalid_msgs=int(invalid.sum()),
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9, card=card,
+    ))
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -870,8 +1060,10 @@ def main() -> None:
     records = check_kernels(dev, ptxas)
     records.append(check_ed25519(dev, e1_ptxas, imads, card))
     launches = main_path(dev, card)
+    scenario_launches = scenario_phase(dev, card)
     for r in records:
         r["launches"] = launches[r["name"]]
+        r["launches_scenario"] = scenario_launches[r["name"]]
         emit(dict(phase="kernel", **r))
     emit({"kernels": records})
     print(card, flush=True)

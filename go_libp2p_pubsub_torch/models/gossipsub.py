@@ -24,10 +24,18 @@ state:
   that keeps the int32 index view for its whole length (the reference
   widens and narrows every round; the values are the same).
 
-This slice covers the closed loop (init, publish, kill_peers, step,
-rollout with the flight recorder, delivery_stats).  The scenario event
-path, the other ``set_*`` mutators, per-edge delay, direct peering,
-placement relabeling and the sharded path are not ported yet.
+- ``rollout_events`` is a host loop over a numpy event schedule: each
+  ``lax.cond`` of the reference's event application is a host ``if`` on
+  the step's row, and only the rows that carry an event reach the device
+  (once, before the first round).  Its record is read to the host once,
+  after the last round, where the two adversary score means are added in
+  XLA's order (``_finish_record``).
+
+Covered: the closed loop (init, publish, kill_peers, step, rollout with
+the flight recorder, delivery_stats) and the scenario event path (the
+``set_*`` mutators, ``graft_spammers``, per-edge delay with
+``max_edge_delay``/``set_edge_delay``, ``rollout_events``).  Direct
+peering, placement relabeling and the sharded path are not ported yet.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from ..config import GossipSubParams, ScoreParams
 from ..ops import bitpack
 from ..ops import cuda_gossip
 from ..ops import histogram as hist_ops
+from ..ops import reduce_order
 from ..ops import rng
 from ..ops import scoring as scoring_ops
 from ..ops.bitpack import as_mask
@@ -57,10 +66,14 @@ from ..ops.graphs import (
     torch_dtype,
 )
 from ..ops.px import px_rewire
+from ..ops.schedule import GossipEvents
 from ..ops.scoring import GlobalCounters, TopicCounters, segment_sum
 
 FLIGHT_HIST_BINS = 32
 _AGE_CAP = (2**31 - 1) // 2
+# GossipEvents fields whose rows go to the device (publishes stay host ints).
+_EVENT_ROWS = ("kill", "revive", "sub_off", "sub_on", "mute_on", "mute_off",
+               "promo_on", "promo_off", "delay", "silence")
 
 
 def resolve_device(device) -> torch.device:
@@ -100,8 +113,9 @@ class GossipState(NamedTuple):
     self_promo: torch.Tensor    # bool[N] IHAVE self-promoters
     gossip_delay: torch.Tensor  # int32[N] ingress latency of the pend fold
     pend_hold: torch.Tensor     # int32[N]
-    edge_delay: torch.Tensor    # int32[N, K] (per-edge delay: not ported)
-    fresh_hist: torch.Tensor    # int32[N, 0, W] (per-edge delay: not ported)
+    edge_delay: torch.Tensor    # int32[N, K] per-edge eager-path delay
+    fresh_hist: torch.Tensor    # int32[N, D, W] fresh planes of the last D
+    #                             rounds (D = max_edge_delay + 1, or 0)
     first_step: torch.Tensor    # int32[N, M] first-receipt step, -1 = never
     msg_valid: torch.Tensor     # bool[M]
     msg_birth: torch.Tensor     # int32[M]
@@ -213,6 +227,45 @@ def _assign_slots(
     )
 
 
+def build_topology_local(
+    rng_np: np.random.Generator, n: int, k: int, degree: int,
+    spread: Optional[int] = None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Locality-structured ~degree-regular graph: each peer's edges land
+    within ring distance ``spread`` (default n // 32) of it, then every id
+    is relabeled through a random permutation so the locality is invisible
+    to id order."""
+    if degree >= k:
+        raise ValueError(f"degree ({degree}) must be < slot count k ({k})")
+    if degree == 0 or n < 4:
+        empty = np.full((n, k), -1, np.int64)
+        return (
+            encode_index_plane(empty, n),
+            encode_index_plane(empty, k),
+            empty >= 0,
+            np.zeros((n, k), bool),
+        )
+    if spread is None:
+        spread = max(4, n // 32)
+    spread = int(min(spread, max(1, n // 2 - 1)))
+    src = np.tile(np.arange(n, dtype=np.int64), degree // 2)
+    if degree % 2:
+        src = np.concatenate(
+            [src, rng_np.choice(n, n // 2, replace=False).astype(np.int64)]
+        )
+    delta = rng_np.integers(1, spread + 1, size=src.shape[0])
+    sign = np.where(rng_np.integers(0, 2, src.shape[0]) > 0, 1, -1)
+    dst = (src + delta * sign) % n
+    e = np.stack([np.minimum(src, dst), np.maximum(src, dst)], 1)
+    e = np.unique(e[src != dst], axis=0)
+    sigma = rng_np.permutation(n).astype(np.int64)
+    e = np.sort(np.stack([sigma[e[:, 0]], sigma[e[:, 1]]], 1), axis=1)
+    dialer = np.where(
+        rng_np.integers(0, 2, len(e)).astype(bool), e[:, 0], e[:, 1]
+    )
+    return _assign_slots(e, dialer, n, k)
+
+
 def compute_edge_live(nbr_valid, nbrs, alive) -> torch.Tensor:
     """bool[N, K]: slot is wired AND its remote peer is alive (takes the
     narrow storage form or the int32 view of ``nbrs``)."""
@@ -239,15 +292,20 @@ def seed_message(
     have_w, fresh_w = cleared(have_w), cleared(fresh_w)
     have_w[src, word] |= ~clear
     fresh_w[src, word] |= ~clear
+    # Element stores of Python scalars go through ``fill_``: an indexed
+    # assignment would copy the scalar from the host and synchronise.
     first_step = first_step.clone()
     first_step[:, slot] = -1
-    first_step[src, slot] = step
+    first_step[src, slot].fill_(step)
     msg_valid, msg_birth = msg_valid.clone(), msg_birth.clone()
     msg_active, msg_used = msg_active.clone(), msg_used.clone()
-    msg_valid[slot] = valid
-    msg_birth[slot] = step
-    msg_active[slot] = True
-    msg_used[slot] = True
+    if isinstance(valid, torch.Tensor):
+        msg_valid[slot] = valid
+    else:
+        msg_valid[slot].fill_(bool(valid))
+    msg_birth[slot].fill_(step)
+    msg_active[slot].fill_(True)
+    msg_used[slot].fill_(True)
     return (
         have_w, fresh_w, cleared(gossip_pend_w), cleared(iwant_pend_w),
         first_step, msg_valid, msg_birth, msg_active, msg_used,
@@ -282,6 +340,39 @@ def _nanquantile_int(lat: torch.Tensor, mask: torch.Tensor, q: float):
     return torch.where(count > 0, out, torch.nan)
 
 
+class _StagedEvents:
+    """A schedule's event rows on the model's device: for each field, only
+    the rows of the steps where it fires, copied once; and the valid
+    publishes' sources of each step (histogram bin 0)."""
+
+    def __init__(self, model: "GossipSub", events: GossipEvents):
+        self._rows: Dict[str, Tuple[Dict[int, int], torch.Tensor]] = {}
+        for name in _EVENT_ROWS:
+            plane = getattr(events, name)
+            on = (plane >= 0).any(axis=1) if name == "delay" else plane.any(
+                axis=1)
+            steps = np.flatnonzero(on)
+            if steps.size:
+                self._rows[name] = (
+                    {int(t): j for j, t in enumerate(steps)},
+                    model._stage(plane[steps]))
+        counted = (events.pub_src >= 0) & events.pub_valid
+        self._pubs: Dict[int, Tuple[int, int]] = {}
+        srcs = events.pub_src[counted]
+        starts = np.concatenate([[0], np.cumsum(counted.sum(axis=1))])
+        for t in np.flatnonzero(counted.any(axis=1)):
+            self._pubs[int(t)] = (int(starts[t]), int(starts[t + 1]))
+        self._srcs = model._stage(srcs.astype(np.int64)) if srcs.size else None
+
+    def row(self, name: str, t: int) -> torch.Tensor:
+        index, rows = self._rows[name]
+        return rows[index[t]]
+
+    def publishers(self, t: int) -> Optional[torch.Tensor]:
+        span = self._pubs.get(t)
+        return None if span is None else self._srcs[span[0]:span[1]]
+
+
 class GossipSub:
     """Single-topic GossipSub simulator; state lives on ``device``
     (default ``"cuda"``, which raises when no card is present)."""
@@ -296,6 +387,9 @@ class GossipSub:
         score_params: Optional[ScoreParams] = None,
         heartbeat_steps: int = 8,
         fused_prologue: Optional[bool] = None,
+        builder=None,
+        graft_spammers: Optional[np.ndarray] = None,
+        max_edge_delay: int = 0,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -311,6 +405,16 @@ class GossipSub:
         self.heartbeat_steps = heartbeat_steps
         self.fused_prologue = True if fused_prologue is None else bool(
             fused_prologue)
+        self.builder = builder  # explicit topology builder (seed pinning)
+        # Per-edge eager-path delay ceiling: > 0 carries a (D + 1)-plane
+        # fresh history per peer; 0 keeps the ideal fabric.
+        if max_edge_delay < 0:
+            raise ValueError("max_edge_delay must be >= 0")
+        self.max_edge_delay = max_edge_delay
+        # Peers (bool[N]) that GRAFT through their own prune backoff; their
+        # refused attempts accrue the P7 behaviour penalty.
+        self.graft_spammers = None if graft_spammers is None else self._t(
+            np.asarray(graft_spammers, bool))
 
     def _t(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -319,7 +423,8 @@ class GossipSub:
         """Connection topology -> (nbrs, rev, nbr_valid, outbound) tensors
         (the loop builder up to 4096 peers, the vectorized one above)."""
         rng_np = np.random.default_rng(seed)
-        builder = build_topology if self.n <= 4096 else build_topology_fast
+        builder = self.builder or (
+            build_topology if self.n <= 4096 else build_topology_fast)
         nbrs, rev, valid, outbound = builder(
             rng_np, self.n, self.k, self.conn_degree)
         nbrs = encode_index_plane(nbrs, self.n, dtype=self.idx_dtype)
@@ -368,7 +473,9 @@ class GossipSub:
             gossip_delay=zeros(n, torch.int32),
             pend_hold=zeros(n, torch.int32),
             edge_delay=zeros((n, k), torch.int32),
-            fresh_hist=zeros((n, 0, w), torch.int32),
+            fresh_hist=zeros(
+                (n, self.max_edge_delay + 1 if self.max_edge_delay else 0, w),
+                torch.int32),
             first_step=torch.full((n, m), -1, dtype=torch.int32, device=dev),
             msg_valid=zeros(m, torch.bool),
             msg_birth=zeros(m, torch.int32),
@@ -455,7 +562,7 @@ class GossipSub:
             valid = valid.to(device=dev, dtype=torch.bool)
             bm[word] = torch.where(valid, bitpack.as_int32_bits(1 << bit), 0)
         elif valid:
-            bm[word] = bitpack.as_int32_bits(1 << bit)
+            bm[word].fill_(bitpack.as_int32_bits(1 << bit))
         rows = torch.where(targets, decode_index_plane(st.nbrs[src]), n).long()
         rows_c = torch.clamp(rows, 0, n - 1)
         gathered = pend_w[rows_c]                                # [K, W]
@@ -466,9 +573,19 @@ class GossipSub:
         arm = (cur_hold <= 0) & (gathered == 0).all(dim=-1) & valid
         hold_ext = torch.cat([st.pend_hold, st.pend_hold.new_zeros(1)])
         hold_ext[rows] = torch.where(arm, st.gossip_delay[rows_c], cur_hold)
+        # Per-edge delay: the history mirrors fresh_w's mutations -- the
+        # recycled slot leaves every plane and the publisher's bit enters
+        # the plane delay-0 edges read next round (valid or not).
+        fresh_hist = st.fresh_hist
+        if self.max_edge_delay:
+            cur = (st.step - 1) % (self.max_edge_delay + 1)
+            fresh_hist = fresh_hist.clone()
+            fresh_hist[:, :, word] &= ~bitpack.as_int32_bits(1 << bit)
+            fresh_hist[src, cur, word] |= bitpack.as_int32_bits(1 << bit)
         return st._replace(
             have_w=have_w, fresh_w=fresh_w, gossip_pend_w=pend_w,
             iwant_pend_w=iwant_pend_w, pend_hold=hold_ext[:n],
+            fresh_hist=fresh_hist,
             first_step=first_step, msg_valid=mv, msg_birth=mb,
             msg_active=ma, msg_used=mu, fanout=fanout,
             fanout_age=fanout_age, key=knext,
@@ -481,6 +598,57 @@ class GossipSub:
         return st._replace(
             alive=alive,
             edge_live=compute_edge_live(st.nbr_valid, st.nbrs, alive),
+        )
+
+    def set_gossip_delay(self, st: GossipState, delay) -> GossipState:
+        """Per-peer ingress gossip latency (int32[N] extra rounds pending
+        gossip/flood transfers wait before folding); zeros restore the
+        ideal one-round fabric."""
+        return st._replace(gossip_delay=torch.as_tensor(
+            delay, device=self.device).to(torch.int32))
+
+    def set_edge_delay(self, st: GossipState, delay) -> GossipState:
+        """Per-edge eager-path ingress latency (int32[N, K]: extra rounds a
+        copy spends crossing from ``nbrs[i, s]`` into i), addressed by the
+        receiver's slot.  Needs ``max_edge_delay >= max(delay)``."""
+        d = (delay.cpu().numpy() if isinstance(delay, torch.Tensor)
+             else np.asarray(delay))
+        if d.max(initial=0) > self.max_edge_delay:
+            raise ValueError(
+                f"edge delay {int(d.max())} exceeds this model's "
+                f"max_edge_delay={self.max_edge_delay}; rebuild the model "
+                f"with a larger ceiling"
+            )
+        if d.min(initial=0) < 0:
+            raise ValueError("edge delays must be >= 0")
+        return st._replace(edge_delay=self._t(d, torch.int32))
+
+    def set_gossip_mute(self, st: GossipState, mask) -> GossipState:
+        """Mark peers (bool[N]) as promise-breakers: they advertise IHAVEs
+        but never serve the IWANTs; every ask charges their P7."""
+        return st._replace(gossip_mute=torch.as_tensor(
+            mask, device=self.device).to(torch.bool))
+
+    def set_self_promo(self, st: GossipState, mask) -> GossipState:
+        """Mark peers (bool[N]) as IHAVE self-promoters: they advertise only
+        the ids they originated."""
+        return st._replace(self_promo=torch.as_tensor(
+            mask, device=self.device).to(torch.bool))
+
+    def set_subscribed(self, st: GossipState, sub) -> GossipState:
+        """Change topic membership (bool[N]): unsubscribing prunes the
+        peer's mesh edges at once, subscribing drops its fanout state."""
+        return self._subscribe(st, torch.as_tensor(
+            sub, device=self.device).to(torch.bool))
+
+    def _subscribe(self, st: GossipState, sub: torch.Tensor) -> GossipState:
+        nbr_sub = st.nbr_valid & safe_gather(
+            sub, decode_index_plane(st.nbrs), False)
+        return st._replace(
+            subscribed=sub,
+            nbr_sub=nbr_sub,
+            mesh=st.mesh & sub[:, None] & nbr_sub,
+            fanout=st.fanout & ~sub[:, None],
         )
 
     # -- transition ---------------------------------------------------------
@@ -566,6 +734,7 @@ class GossipSub:
             khb, st.mesh, scores, st.nbrs, st.rev, edge_ok, part, p,
             st.backoff, st.outbound, do_og,
             og_threshold=sp.opportunistic_graft_threshold,
+            ignore_backoff=self.graft_spammers,
             edge_idx=edge_idx,
             with_px_offer=self.fused_prologue,
         )
@@ -663,14 +832,25 @@ class GossipSub:
         relay_mesh = st.mesh & (
             st.scores >= self.score_params.graylist_threshold)
         valid_w = bitpack.pack(st.msg_valid & st.msg_active)
-        # IDONTWANT suppression sees the receiver's pre-fold possession.
-        idontwant = self.params.idontwant
+        # Per-edge delay: each edge reads its sender's fresh plane from
+        # edge_delay rounds back, (step - 1 - d) mod D of the history.
+        dpl = self.max_edge_delay + 1
+        fresh_src = None
+        if self.max_edge_delay:
+            jrows = torch.clamp(st.nbrs, 0, self.n - 1)
+            plane = torch.remainder(st.step - 1 - st.edge_delay, dpl)
+            fresh_src = st.fresh_hist.reshape(self.n * dpl, self.w)[
+                (jrows * dpl + plane).long()]
+        # IDONTWANT suppression sees the receiver's pre-fold possession; the
+        # reference turns it off under per-edge delay.
+        idontwant = self.params.idontwant and not self.max_edge_delay
         idw = st.have_w if idontwant else None
         if idontwant and self.params.idontwant_wire_lag:
             idw = st.have_w & ~st.fresh_w
         out = cuda_gossip.propagate(
             relay_mesh, st.nbrs, st.edge_live, st.alive, have_w,
-            st.fresh_w, valid_w, idontwant=idontwant, idw_have_w=idw,
+            st.fresh_w, valid_w, fresh_src=fresh_src, idontwant=idontwant,
+            idw_have_w=idw,
         )
         # One stamping pass for both receipt sources (same step).
         stamped = (
@@ -693,9 +873,16 @@ class GossipSub:
             torch.where(incoming, st.gossip_delay, 0),
             st.pend_hold - 1,
         ).to(torch.int32)
+        new_fresh = out.fresh_w | gossip_new
+        fresh_hist = st.fresh_hist
+        if self.max_edge_delay:
+            # This round's plane enters the history at step mod D.
+            fresh_hist = fresh_hist.clone()
+            fresh_hist[:, st.step % dpl] = new_fresh
         nxt = st._replace(
             have_w=out.have_w,
-            fresh_w=out.fresh_w | gossip_new,
+            fresh_w=new_fresh,
+            fresh_hist=fresh_hist,
             first_step=first_step,
             counters=c,
             gossip_pend_w=pend_next,
@@ -767,6 +954,224 @@ class GossipSub:
         record_ys["step"] = torch.arange(first, first + n_steps,
                                          dtype=torch.int32, device=self.device)
         return self._narrow_indices(st), record_ys
+
+    # -- scenario engine ----------------------------------------------------
+
+    def _stage(self, a: np.ndarray) -> torch.Tensor:
+        """Host array -> tensor on the model's device without a host sync
+        (a pinned buffer and an asynchronous copy on a card)."""
+        t = torch.from_numpy(np.array(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    @staticmethod
+    def masked_min(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Min of ``x`` over ``mask``; NaN when the mask is empty."""
+        lo = torch.where(mask, x, torch.inf).min()
+        return torch.where(mask.any(), lo, torch.nan)
+
+    def _apply_events(self, st: GossipState, ev: GossipEvents,
+                      row) -> GossipState:
+        """Apply one step's rows of a ``GossipEvents`` schedule (host numpy)
+        in the reference's order: liveness, subscription, mute, self-promo,
+        delay, publishes.  Each test of whether a kind fires is a host
+        ``if`` on the numpy row; ``row(name)`` gives the row staged on the
+        device.  ``silence`` acts after the step."""
+        def delta(cur, off, on):
+            if getattr(ev, off).any():
+                cur = cur & ~row(off)
+            if getattr(ev, on).any():
+                cur = cur | row(on)
+            return cur
+
+        if ev.kill.any() or ev.revive.any():
+            alive = delta(st.alive, "kill", "revive")
+            st = st._replace(
+                alive=alive,
+                edge_live=compute_edge_live(st.nbr_valid, st.nbrs, alive))
+        if ev.sub_off.any() or ev.sub_on.any():
+            st = self._subscribe(st, delta(st.subscribed, "sub_off", "sub_on"))
+        if ev.mute_on.any() or ev.mute_off.any():
+            st = st._replace(
+                gossip_mute=delta(st.gossip_mute, "mute_off", "mute_on"))
+        if ev.promo_on.any() or ev.promo_off.any():
+            st = st._replace(
+                self_promo=delta(st.self_promo, "promo_off", "promo_on"))
+        if (ev.delay >= 0).any():
+            d = row("delay")
+            st = st._replace(
+                gossip_delay=torch.where(d >= 0, d, st.gossip_delay))
+        for src, slot, valid in zip(ev.pub_src, ev.pub_slot, ev.pub_valid):
+            if src >= 0:
+                st = self.publish(st, int(src), min(max(int(slot), 0),
+                                                    self.m - 1), bool(valid))
+        return st
+
+    def _campaign_record(self, st: GossipState, att: Optional[Tuple[
+            torch.Tensor, torch.Tensor]], target: Optional[int]
+    ) -> Dict[str, torch.Tensor]:
+        """One round's adversary-standing channels (wide index view);
+        ``att`` is the attackers' (bool[N] mask, int64 ids) on the device.
+
+        The two score means are sums over masks the reference adds in XLA's
+        order, so the round records their entries instead and
+        :meth:`_finish_record` adds them in that order on the host:
+        ``_score_idx``/``_score_vals`` (each attacker's slot in its
+        neighbors' rows, found through ``rev``; -1 where unwired),
+        ``_score_count`` (the mask's size, which checks the pairing) and
+        ``_gscore_idx``/``_gscore_vals`` (the attackers' global scores)."""
+        rec: Dict[str, torch.Tensor] = {}
+        n, k = self.n, self.k
+        attackers = None if att is None else att[0]
+        if att is not None:
+            ids = att[1]
+            nbrs_c = torch.clamp(st.nbrs, 0, n - 1).long()
+            att_slot = st.nbr_valid & attackers[nbrs_c]
+            honest = ~attackers & st.alive
+            honest_mesh = st.mesh & st.nbr_valid & honest[:, None]
+            captured = (st.mesh & att_slot & honest[:, None]).sum(
+                dtype=torch.int32)
+            rec["attacker_mesh_edges"] = captured
+            rec["attacker_capture_frac"] = captured.to(torch.float32) / (
+                torch.clamp(honest_mesh.sum(dtype=torch.int32), min=1).to(
+                    torch.float32))
+            i, s = nbrs_c[ids], torch.clamp(st.rev[ids], 0, k - 1).long()
+            paired = (st.nbr_valid[ids] & st.nbr_valid[i, s]
+                      & (st.nbrs[i, s] == ids[:, None]))
+            rec["_score_idx"] = torch.where(paired, i * k + s, -1).reshape(-1)
+            rec["_score_vals"] = st.scores[i, s].reshape(-1)
+            rec["_score_count"] = att_slot.sum(dtype=torch.int32)
+            rec["_gscore_idx"] = ids
+            rec["_gscore_vals"] = scoring_ops.global_score(
+                st.gcounters, self.score_params)[ids]
+            rec["honest_score_min"] = self.masked_min(
+                st.scores,
+                st.nbr_valid & ~att_slot & torch.isfinite(st.scores))
+            bp = st.gcounters.behaviour_penalty
+            # max over the attackers with initial 0.0: 0 when empty.
+            rec["attacker_behaviour_penalty"] = torch.clamp(
+                torch.where(attackers, bp, -torch.inf).max(), min=0.0)
+            rec["honest_behaviour_penalty_max"] = torch.where(
+                ~attackers, bp, 0.0).max()
+        if target is not None:
+            tgt_edges = st.mesh[target] & st.nbr_valid[target]
+            if attackers is not None:
+                tgt_edges = tgt_edges & ~attackers[
+                    torch.clamp(st.nbrs[target], 0, n - 1).long()]
+            rec["target_honest_mesh_edges"] = tgt_edges.sum(dtype=torch.int32)
+        return rec
+
+    def _to_host(self, record: Dict[str, torch.Tensor]
+                 ) -> Dict[str, np.ndarray]:
+        """Device channels -> host numpy: asynchronous copies into pinned
+        buffers, then one wait on an event behind them."""
+        if self.device.type != "cuda":
+            return {name: v.numpy() for name, v in record.items()}
+        host = {name: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                for name, v in record.items()}
+        for name, v in record.items():
+            host[name].copy_(v, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return {name: v.numpy() for name, v in host.items()}
+
+    def _finish_record(self, record: Dict[str, torch.Tensor]
+                       ) -> Dict[str, np.ndarray]:
+        """Per-round device channels with the adversary's mask entries ->
+        the reference's flight record (host numpy), the adversary score
+        means added in the reference's XLA order (``ops/reduce_order``).
+        Raises if a round's mask entries do not cover the mask (the slot
+        pairing broke)."""
+        host = self._to_host(record)
+        out = {name: v for name, v in host.items() if not name.startswith("_")}
+        if "_score_idx" not in host:
+            return out
+        means, gmeans = [], []
+        for t, (idx, vals, cnt) in enumerate(zip(
+                host["_score_idx"], host["_score_vals"],
+                host["_score_count"])):
+            sel = idx >= 0
+            if sel.sum() != cnt or np.unique(idx[sel]).size != sel.sum():
+                raise RuntimeError(
+                    f"round {t}: the attackers' paired slots ({sel.sum()}) "
+                    f"do not cover the attacker-slot mask ({cnt})")
+            means.append(reduce_order.masked_mean(
+                (self.n, self.k), idx[sel], vals[sel], int(cnt)))
+        for ids, vals in zip(host["_gscore_idx"], host["_gscore_vals"]):
+            gmeans.append(reduce_order.masked_mean(
+                (self.n,), ids, vals, ids.size))
+        out["attacker_score_mean"] = np.array(means, np.float32)
+        out["attacker_global_score"] = np.array(gmeans, np.float32)
+        return out
+
+    def rollout_events(self, st: GossipState, events: GossipEvents,
+                       attackers=None, target: Optional[int] = None,
+                       record: bool = True):
+        """Run a whole event schedule (``ops.schedule.GossipEvents``, host
+        numpy) -> (final state, flight record | None).
+
+        Events at step t apply before round t (``_apply_events``);
+        ``silence`` zeroes the silenced peers' fresh words after it.  The
+        rows that carry an event are copied to the device once, before the
+        first round, and every branch is taken on the host from the numpy
+        rows, so no round reads the device.  With ``record`` each round
+        adds :meth:`flight_record_round` plus the adversary channels of
+        :meth:`_campaign_record` (when ``attackers`` bool[N] / ``target``
+        are given), and in-campaign publishers' own receipts enter the
+        latency histogram at bin 0.  The record comes back as host numpy
+        channels, the reference's set, read once after the last round.
+        ``silence`` assumes the ideal fabric (the compiler rejects it under
+        ``max_edge_delay``)."""
+        n_steps = int(events.kill.shape[0])
+        rows = _StagedEvents(self, events)
+        att = None
+        if attackers is not None:
+            att_np = (attackers.cpu().numpy() if isinstance(
+                attackers, torch.Tensor) else np.asarray(attackers, bool))
+            att = (self._stage(att_np), self._stage(np.flatnonzero(att_np)))
+        st = self._widen_indices(st)
+        hist = None
+        if record:
+            hist = hist_ops.latency_histogram_seed(
+                st.first_step, st.msg_birth, st.msg_used & st.msg_valid,
+                st.alive & st.subscribed, FLIGHT_HIST_BINS,
+            )
+        rounds: List[Dict[str, torch.Tensor]] = []
+        first = st.step + 1
+        for t in range(n_steps):
+            ev = GossipEvents(*(plane[t] for plane in events))
+            st = self._apply_events(st, ev, lambda name: rows.row(name, t))
+            if not record:
+                st = self._step_wide(st)
+            else:
+                pubs = rows.publishers(t)
+                if pubs is not None:
+                    counted = (st.alive[pubs] & st.subscribed[pubs]).sum(
+                        dtype=torch.int32)
+                    hist = torch.cat([hist[:1] + counted, hist[1:]])
+                stamp = st.step
+                st, per_msg = self._step_wide(st, with_receipts=True)
+                hist = hist + hist_ops.latency_histogram_increment(
+                    per_msg, st.msg_birth, st.msg_used & st.msg_valid,
+                    stamp, FLIGHT_HIST_BINS,
+                )
+            if ev.silence.any():
+                st = st._replace(fresh_w=torch.where(
+                    rows.row("silence", t)[:, None], 0, st.fresh_w))
+            if record:
+                rec = self.flight_record_round(st, hist)
+                rec.update(self._campaign_record(st, att, target))
+                rounds.append(rec)
+        if not record:
+            return self._narrow_indices(st), None
+        record_ys = {
+            name: torch.stack([r[name] for r in rounds]) for name in rounds[0]
+        } if rounds else {}
+        record_ys["step"] = torch.arange(first, first + n_steps,
+                                         dtype=torch.int32, device=self.device)
+        return self._narrow_indices(st), self._finish_record(record_ys)
 
     def flight_record_round(self, st: GossipState,
                             lat_hist: torch.Tensor) -> Dict[str, torch.Tensor]:

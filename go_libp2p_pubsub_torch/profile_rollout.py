@@ -1,6 +1,7 @@
 """Where a recorded rollout's time goes on the card.
 
     python -m go_libp2p_pubsub_torch.profile_rollout [--peers 100000]
+    python -m go_libp2p_pubsub_torch.profile_rollout --campaign
 
 Builds the headline closed loop's model (GossipSub, 32 slots, degree 16,
 128-message window, seed 0, 128 publishes of which 4 invalid), runs one
@@ -25,6 +26,13 @@ warm ``rollout(24, record=True)``, then, from the same state each time:
   operation that synchronises the host with the device, by message (a
   round must have none before it can be captured as a CUDA graph).
 
+With ``--campaign`` the same readings are of the composite attack
+campaign of ``scenario/traces/campaign_100000.trace.json`` (scaled to
+``--peers``): its compiled state and event rows, and
+``rollout_events(record=True)`` over its 48 rounds, with two more ranges,
+the event application before each round (``_apply_events``, publishes
+included) and the adversary channels (``_campaign_record``).
+
 Prints one JSON object.  Needs a CUDA card.
 """
 
@@ -48,6 +56,7 @@ from .ops import rng as rng_ops
 ROUNDS = 24
 RNG_RANGES = ("split", "uniform")
 MODEL_RANGES = ("_propagate", "_heartbeat", "flight_record_round")
+CAMPAIGN_RANGES = ("_apply_events", "_campaign_record")
 # range label -> (wrapper in ops/cuda_gossip.py, its kernel's name)
 PORT_KERNELS = {"gossip_propagate": ("propagate", "propagate_kernel"),
                 "gossip_exchange": ("exchange_select", "exchange_kernel")}
@@ -62,9 +71,30 @@ def _state(gs: GossipSub, n_msgs: int = 128, n_forged: int = 4):
     return st
 
 
-def _timed_rollout(gs: GossipSub, st) -> float:
+def _closed_loop(dev, n_peers: int):
+    """(model, one recorded rollout, rounds) of the headline closed loop."""
+    gs = GossipSub(n_peers=n_peers, n_slots=32, conn_degree=16,
+                   msg_window=128, device=dev)
+    st = _state(gs)
+    return gs, lambda: gs.rollout(st, ROUNDS, record=True), ROUNDS
+
+
+def _campaign(dev, n_peers: int):
+    """(model, one recorded ``rollout_events``, rounds) of the composite
+    campaign at ``n_peers``."""
+    from .scenario import compile_scenario
+    from .scenario.campaign import campaign_spec
+
+    comp = compile_scenario(campaign_spec(n_peers), device=dev)
+    gs = comp.model
+    return gs, lambda: gs.rollout_events(
+        comp.state, comp.events, attackers=comp.attackers,
+        target=comp.target, record=True), comp.spec.n_steps
+
+
+def _timed(run) -> float:
     t0 = time.perf_counter()
-    gs.rollout(st, ROUNDS, record=True)
+    run()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
 
@@ -84,7 +114,7 @@ def _busy_ms(events) -> float:
 
 
 @contextlib.contextmanager
-def _ranges(gs: GossipSub):
+def _ranges(gs: GossipSub, model_ranges=MODEL_RANGES):
     """Wrap the PRNG's functions, the model's round halves and the kernel
     wrappers in ``record_function`` ranges for the length of the block."""
     from torch.profiler import record_function
@@ -103,16 +133,16 @@ def _ranges(gs: GossipSub):
              for module, name, label in saved]
     for module, name, label, fn in saved:
         setattr(module, name, wrap(label, fn))
-    for name in MODEL_RANGES:
+    for name in model_ranges:
         setattr(gs, name, wrap(name, getattr(gs, name)))
     try:
-        yield [label for _, _, label, _ in saved] + list(MODEL_RANGES)
+        yield [label for _, _, label, _ in saved] + list(model_ranges)
     finally:
         for module, name, _, fn in saved:
             if hasattr(fn, "launches"):
                 fn.launches = getattr(module, name).launches
             setattr(module, name, fn)
-        for name in MODEL_RANGES:
+        for name in model_ranges:
             delattr(gs, name)
 
 
@@ -173,7 +203,7 @@ def _range_device_ms(events, labels):
              for label in labels}, port)
 
 
-def profile(n_peers: int) -> dict:
+def profile(n_peers: int, campaign: bool = False) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_rollout needs a CUDA card")
     from torch.autograd import DeviceType
@@ -181,14 +211,12 @@ def profile(n_peers: int) -> dict:
     from torch.profiler import profile as torch_profile
 
     dev = torch.device("cuda", 0)
-    gs = GossipSub(n_peers=n_peers, n_slots=32, conn_degree=16,
-                   msg_window=128, device=dev)
-    st = _state(gs)
-    _timed_rollout(gs, st)
-    unprofiled_ms = [_timed_rollout(gs, st) for _ in range(3)]
+    gs, run, rounds = (_campaign if campaign else _closed_loop)(dev, n_peers)
+    _timed(run)
+    unprofiled_ms = [_timed(run) for _ in range(3)]
 
     with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall_ms = _timed_rollout(gs, st)
+        wall_ms = _timed(run)
     device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not device:
         raise SystemExit("the CUDA trace holds no device events")
@@ -204,10 +232,11 @@ def profile(n_peers: int) -> dict:
             "launches": len(launched),
             "device_ms": sum(e.time_range.elapsed_us() for e in launched) / 1e3}
 
-    with _ranges(gs) as labels:
+    model_ranges = MODEL_RANGES + (CAMPAIGN_RANGES if campaign else ())
+    with _ranges(gs, model_ranges) as labels:
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof_ranges:
-            _timed_rollout(gs, st)
+            _timed(run)
     ranges, linked = _range_device_ms(prof_ranges.events(), labels)
     for label, seen in linked.items():
         port_kernels[label]["linked_in_range_trace"] = seen
@@ -216,7 +245,7 @@ def profile(n_peers: int) -> dict:
     try:
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            gs.rollout(st, ROUNDS, record=True)
+            run()
         torch.cuda.synchronize()
     finally:
         torch.cuda.set_sync_debug_mode("default")
@@ -225,12 +254,13 @@ def profile(n_peers: int) -> dict:
     return {
         "device": torch.cuda.get_device_name(0),
         "n_peers": n_peers,
-        "rounds": ROUNDS,
+        "path": "rollout_events (campaign)" if campaign else "rollout",
+        "rounds": rounds,
         "unprofiled_wall_ms": unprofiled_ms,
         "traced_wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms,
-        "device_ops_per_round": len(device) / ROUNDS,
+        "device_ops_per_round": len(device) / rounds,
         "top_kernels": top,
         "port_kernels": port_kernels,
         "ranges": ranges,
@@ -241,8 +271,10 @@ def profile(n_peers: int) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--peers", type=int, default=100_000)
+    ap.add_argument("--campaign", action="store_true",
+                    help="profile the composite campaign's rollout_events")
     args = ap.parse_args()
-    print(json.dumps(profile(args.peers)))
+    print(json.dumps(profile(args.peers, args.campaign)))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,479 @@
+"""Scenario compiler: lower a :class:`ScenarioSpec` to event tensors.
+
+The JAX package's ``scenario/compiler.py`` for the ``gossipsub`` family,
+in the port.  The lowering is a pure host-side function of the spec: every
+random draw (churn victims, workload publishers, link cohorts) comes from
+a ``np.random.default_rng([seed, tag, index])`` substream, so the same
+spec always produces the same event tensors -- the foundation of
+bit-for-bit replay, and what lets the port replay a trace the JAX package
+wrote.  The output is a :class:`CompiledScenario`: the model on
+``device``, its initialized (and possibly adversary-prepared) state, and
+one ``ops.schedule.GossipEvents`` of host numpy rows whose leading axis is
+the step of the model's ``rollout_events``.
+
+The state surgery of the attack waves (sybil ``ip_group``, the cold-boot
+mesh and counter rewrite, the eclipse attacker draw) reads the state back
+to numpy exactly as the reference does, and puts it back on the model's
+device in the state's storage dtypes.
+
+The other families (``multitopic``, ``treecast``, ``rlnc``, ``hybrid``)
+are not ported yet and raise ``NotImplementedError`` naming their ROADMAP
+item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import GossipSubParams, ScoreParams
+from ..ops import schedule as sched
+from ..ops.graphs import decode_index_plane
+from .spec import ScenarioSpec
+
+# Substream tags: each spec component draws from its own child stream, so
+# adding/removing one component never shifts another's randomness.
+_TAG_WORKLOAD, _TAG_CHURN, _TAG_LINK, _TAG_ATTACK = 1, 2, 3, 4
+
+# The families the port does not run yet, with the ROADMAP item that
+# ports each one.
+_NOT_PORTED = {
+    "multitopic": "ROADMAP A7 (multi-topic model)",
+    "treecast": "ROADMAP A8 (router family and tree)",
+    "rlnc": "ROADMAP A9 (coded plane)",
+    "hybrid": "ROADMAP A9 (coded plane)",
+}
+
+
+@dataclasses.dataclass
+class CompiledScenario:
+    """A spec lowered against a concrete model + initialized state."""
+
+    spec: ScenarioSpec
+    model: Any
+    state: Any
+    events: Any                       # ops.schedule.GossipEvents (host numpy)
+    attackers: Optional[np.ndarray]   # bool[N] union of wave attackers
+    target: Optional[int]             # eclipse target (record channel)
+    n_publishes: int
+
+
+def _rng(seed: int, tag: int, index: int) -> np.random.Generator:
+    return np.random.default_rng([seed, tag, index])
+
+
+def _split_model_kwargs(spec: ScenarioSpec) -> Dict[str, Any]:
+    kw = dict(spec.model)
+    if "params" in kw:
+        kw["params"] = GossipSubParams(**kw["params"])
+    if "score_params" in kw:
+        kw["score_params"] = ScoreParams(**kw["score_params"])
+    return kw
+
+
+def _check_family(spec: ScenarioSpec) -> None:
+    if spec.family in _NOT_PORTED:
+        raise NotImplementedError(
+            f"the {spec.family} family is not ported yet: "
+            f"{_NOT_PORTED[spec.family]}")
+    if spec.family != "gossipsub":
+        raise ValueError(f"unknown scenario family {spec.family!r}")
+
+
+def build_model(spec: ScenarioSpec, graft_spammers=None, device="cuda"):
+    """Construct the spec's model on ``device`` (host side; no state yet)."""
+    _check_family(spec)
+    from ..models.gossipsub import GossipSub
+
+    kw = _split_model_kwargs(spec)
+    # Declarative topology: a {"kind": ...} dict lowered by scenario.realism
+    # to a builder closure.
+    topo = kw.pop("topology", None)
+    if topo is not None:
+        from .realism import topology_builder
+
+        kw["builder"] = topology_builder(topo)
+    return GossipSub(graft_spammers=graft_spammers, device=device, **kw)
+
+
+# Both targeted kinds need the flight recorder's single target channel, so
+# a scenario carries at most one of them.
+_TARGETED_KINDS = ("eclipse", "cold_boot_eclipse")
+
+
+def _targeted_wave(spec: ScenarioSpec):
+    waves = [a for a in spec.attacks if a.kind in _TARGETED_KINDS]
+    if len(waves) > 1:
+        raise ValueError(
+            "at most one eclipse / cold_boot_eclipse wave per scenario"
+        )
+    return waves[0] if waves else None
+
+
+def _window(start: int, stop: Optional[int], n_steps: int) -> Tuple[int, int]:
+    stop = n_steps if stop is None else min(stop, n_steps)
+    if not (0 <= start < n_steps) or stop <= start:
+        raise ValueError(
+            f"event window [{start}, {stop}) outside scenario [0, {n_steps})"
+        )
+    return start, stop
+
+
+def compile_scenario(spec: ScenarioSpec, device="cuda") -> CompiledScenario:
+    """Lower ``spec`` -> (model on ``device``, initialized state, events)."""
+    _check_family(spec)
+    return _compile_gossipsub(spec, device)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+def _compile_gossipsub(spec: ScenarioSpec, device) -> CompiledScenario:
+    T = spec.n_steps
+
+    # -- model + state (eclipse needs the converged mesh, so init first;
+    #    graft_spam rebinds the constructor and re-inits with the same seed,
+    #    which reproduces the same topology and warmup mesh).
+    model = build_model(spec, device=device)
+    st = model.init(seed=spec.seed)
+    n = model.n
+    ecl = _targeted_wave(spec)
+    target = ecl.target if ecl else None
+
+    # Per-wave attacker masks (spam/mute lowering is wave-scoped) plus the
+    # union the record channels and publisher draws exclude.
+    attackers = np.zeros(n, bool)
+    wave_att: List[np.ndarray] = []
+    for w in spec.attacks:
+        wa = np.zeros(n, bool)
+        if w.kind in _TARGETED_KINDS:
+            nbrs = _host(decode_index_plane(st.nbrs))
+            if not (0 <= w.target < n):
+                raise ValueError(f"{w.kind} target {w.target} out of range")
+            if w.kind == "eclipse":
+                mesh = _host(st.mesh)
+                att_ids = sorted(
+                    {int(nbrs[w.target, s]) for s in range(model.k)
+                     if mesh[w.target, s]}
+                )
+                if not att_ids:
+                    raise ValueError(
+                        "eclipse target has an empty mesh at init"
+                    )
+            else:  # cold_boot_eclipse: connected neighbors, slot order
+                valid = _host(st.nbr_valid)
+                conn = list(dict.fromkeys(
+                    int(nbrs[w.target, s]) for s in range(model.k)
+                    if valid[w.target, s]
+                ))
+                if len(conn) < w.n_attackers:
+                    raise ValueError(
+                        f"cold_boot_eclipse wants {w.n_attackers} "
+                        f"monopolists but target {w.target} has only "
+                        f"{len(conn)} connected neighbors"
+                    )
+                att_ids = conn[: w.n_attackers]
+            wa[att_ids] = True
+        else:
+            wa[: w.n_attackers] = True
+        wave_att.append(wa)
+        attackers |= wa
+
+    if any(w.graft_spam or w.kind == "graft_spam" for w in spec.attacks):
+        model = build_model(spec, graft_spammers=attackers, device=device)
+        st = model.init(seed=spec.seed)
+
+    # Sybil colocation: attacker identities share one IP group (applied to
+    # the state once -- P6 scores it from the next heartbeat on).
+    if any(w.kind == "sybil" for w in spec.attacks):
+        group = _host(st.gcounters.ip_group).copy()
+        group[attackers] = int(group.min(initial=0))
+        st = st._replace(gcounters=st.gcounters._replace(
+            ip_group=torch.from_numpy(group).to(model.device)))
+
+    # Cold-boot monopoly: rewrite the target's converged mesh so its ONLY
+    # mesh edges are the monopolists (symmetric via nbrs/rev), and zero the
+    # per-slot score counters on every edge the target touches -- the attack
+    # lands before any P1/P2 history exists, on either side, so pruning the
+    # silent monopolists must come from fresh deficit evidence alone.
+    for ai, w in enumerate(spec.attacks):
+        if w.kind != "cold_boot_eclipse":
+            continue
+        wa = wave_att[ai]
+        mesh = _host(st.mesh).copy()
+        nbrs = _host(decode_index_plane(st.nbrs))
+        rev = _host(decode_index_plane(st.rev))
+        valid = _host(st.nbr_valid)
+        counters = [_host(f).copy() for f in st.counters]
+        for s in range(model.k):
+            if not valid[w.target, s]:
+                continue
+            j, r = int(nbrs[w.target, s]), int(rev[w.target, s])
+            keep = bool(wa[j])
+            mesh[w.target, s] = keep
+            mesh[j, r] = keep
+            for f in counters:
+                f[w.target, s] = 0.0
+                f[j, r] = 0.0
+        st = st._replace(
+            mesh=torch.from_numpy(mesh).to(model.device),
+            counters=type(st.counters)(*(
+                torch.from_numpy(f).to(model.device) for f in counters)),
+        )
+
+    # -- publish requests per step (src resolution deferred to the timeline
+    #    walk so publishers are drawn from peers alive at that step).
+    # request = (picker_rng | None, src | None, valid, topic)
+    requests: List[List[tuple]] = [[] for _ in range(T)]
+    for wi, w in enumerate(spec.workloads):
+        start, stop = _window(w.start, w.stop, T)
+        rng = _rng(spec.seed, _TAG_WORKLOAD, wi)
+        if w.kind == "burst":
+            steps = [start]
+        else:
+            steps = range(start, stop, w.every)
+        for t in steps:
+            for _ in range(w.n_msgs):
+                requests[t].append((rng, w.src, w.valid, w.topic))
+    for ai, w in enumerate(spec.attacks):
+        ids = [int(a) for a in np.flatnonzero(wave_att[ai])]
+        if w.kind == "covert_flash":
+            start, stop = _window(w.start, w.stop, T)
+            if not (start <= w.defect_step < stop):
+                raise ValueError(
+                    f"covert_flash defect_step {w.defect_step} outside the "
+                    f"wave window [{start}, {stop})"
+                )
+            # Honest until the defect; invalid spam only after it.
+            if w.spam_every:
+                for t in range(w.defect_step, stop, w.spam_every):
+                    for a in ids:
+                        requests[t].append((None, a, False, 0))
+        elif w.kind == "score_farm":
+            start, stop = _window(w.start, w.stop, T)
+            farm_end = start + w.farm_steps
+            if farm_end >= stop:
+                raise ValueError(
+                    f"score_farm farm_steps {w.farm_steps} leaves no spam "
+                    f"phase in the wave window [{start}, {stop})"
+                )
+            # Bank valid-delivery credit, then cash it in as spam cover.
+            for t in range(start, farm_end, w.spam_every):
+                for a in ids:
+                    requests[t].append((None, a, True, 0))
+            for t in range(farm_end, stop, w.spam_every):
+                for a in ids:
+                    requests[t].append((None, a, False, 0))
+        elif w.kind == "self_promo_ihave":
+            # Valid self-originated traffic feeds the crafted IHAVEs.
+            start, stop = _window(w.start, w.stop, T)
+            for t in range(start, stop, w.spam_every):
+                for a in ids:
+                    requests[t].append((None, a, True, 0))
+        elif w.kind == "partition_flood":
+            start, stop = _window(w.start, w.stop, T)
+            flood = stop + w.flood_offset
+            if flood >= T:
+                raise ValueError(
+                    f"partition_flood flood start {flood} is past the "
+                    f"scenario end ({T} steps)"
+                )
+            for t in range(flood, T, w.spam_every):
+                for a in ids:
+                    requests[t].append((None, a, False, 0))
+        elif w.spam_every or w.kind == "spam":
+            every = w.spam_every if w.spam_every else 1
+            start, stop = _window(w.start, w.stop, T)
+            for t in range(start, stop, every):
+                for a in ids:
+                    requests[t].append((None, a, False, 0))
+
+    n_publishes = sum(len(r) for r in requests)
+    if n_publishes > model.m:
+        raise ValueError(
+            f"scenario publishes {n_publishes} messages but the window "
+            f"holds {model.m}; grow msg_window (slot recycling would make "
+            f"the flight recorder's delivery fraction unaccountable)"
+        )
+    pub_width = max(1, max((len(r) for r in requests), default=0))
+
+    events = sched.empty_gossip_events(T, n, pub_width)
+
+    # -- attack windows -> mute / silence / promo tensors (wave-scoped).
+    for ai, w in enumerate(spec.attacks):
+        wa = wave_att[ai]
+        if w.kind in ("eclipse", "promise_spam", "cold_boot_eclipse"):
+            start, stop = _window(w.start, w.stop, T)
+            events.mute_on[start] |= wa
+            if stop < T:
+                events.mute_off[stop] |= wa
+            if w.kind in _TARGETED_KINDS:
+                events.silence[start:stop] |= wa[None, :]
+        elif w.kind == "covert_flash":
+            start, stop = _window(w.start, w.stop, T)
+            # The mask drops at defect_step, not at wave start.
+            events.mute_on[w.defect_step] |= wa
+            if stop < T:
+                events.mute_off[stop] |= wa
+            events.silence[w.defect_step : stop] |= wa[None, :]
+        elif w.kind == "self_promo_ihave":
+            start, stop = _window(w.start, w.stop, T)
+            # Crafted IHAVEs (self-originated ids only) + never serving the
+            # IWANTs those ads attract.
+            events.promo_on[start] |= wa
+            events.mute_on[start] |= wa
+            if stop < T:
+                events.promo_off[stop] |= wa
+                events.mute_off[stop] |= wa
+
+    if events.silence.any() and model.max_edge_delay:
+        raise ValueError(
+            "eclipse silence requires the ideal eager fabric "
+            "(max_edge_delay == 0): squelching fresh_w would desync the "
+            "per-edge fresh history"
+        )
+
+    # -- link-degradation windows -> delay set/restore rows.
+    for li, w in enumerate(spec.links):
+        start, stop = _window(w.start, w.stop, T)
+        if w.peers is not None:
+            cohort = np.asarray(w.peers, int)
+            if cohort.size and (cohort.min() < 0 or cohort.max() >= n):
+                raise ValueError(f"link window peers out of range [0, {n})")
+        else:
+            rng = _rng(spec.seed, _TAG_LINK, li)
+            size = max(1, int(round(w.frac * n)))
+            cohort = rng.choice(n, size=size, replace=False)
+        row = events.delay[start].copy()
+        row[cohort] = w.delay
+        events.delay[start] = row
+        if stop < T:
+            row = events.delay[stop].copy()
+            row[cohort] = np.where(events.delay[stop][cohort] < 0, 0,
+                                   events.delay[stop][cohort])
+            events.delay[stop] = row
+
+    # -- timeline walk: churn + faults + publish src resolution, against a
+    #    host mirror of liveness/subscription so victims and publishers are
+    #    always drawn from peers actually present at that step.
+    alive = np.ones(n, bool)
+    subscribed = st.subscribed.cpu().numpy().copy()
+    protected = attackers.copy()
+    if target is not None:
+        protected[target] = True
+    protected[0] = True  # keep a stable publisher/root candidate
+
+    churn_events: List[List[tuple]] = [[] for _ in range(T)]  # (phase, kind)
+    for ci, ph in enumerate(spec.churn):
+        start, stop = _window(ph.start, ph.stop, T)
+        for t in range(start, stop, ph.every):
+            churn_events[t].append(("phase", ci))
+    if spec.faults:
+        for t_str, ids in spec.faults.get("kills", {}).items():
+            t = int(t_str)
+            if 0 <= t < T:
+                churn_events[t].append(("fault_kill", ids))
+        for t_str, ids in spec.faults.get("leaves", {}).items():
+            t = int(t_str)
+            if 0 <= t < T:
+                churn_events[t].append(("fault_leave", ids))
+
+    churn_rngs = [
+        _rng(spec.seed, _TAG_CHURN, ci) for ci in range(len(spec.churn))
+    ]
+    churn_cursor = [0] * len(spec.churn)  # cycle index into explicit peers
+    rejoin_at: List[List[tuple]] = [[] for _ in range(T + 1)]  # (ids, graceful)
+
+    # partition_flood cohorts ride the fault/rejoin machinery (kill at
+    # start, revive at stop) so the liveness mirror below stays correct for
+    # victim and publisher draws — never raw kill/revive tensor writes.
+    for ai, w in enumerate(spec.attacks):
+        if w.kind != "partition_flood":
+            continue
+        start, stop = _window(w.start, w.stop, T)
+        rng = _rng(spec.seed, _TAG_ATTACK, ai)
+        pool = np.flatnonzero(~protected)
+        size = min(max(1, int(round(w.partition_frac * n))), len(pool))
+        if size == 0:
+            raise ValueError(
+                "partition_flood found no honest unprotected peers to cut"
+            )
+        cohort = np.sort(rng.choice(pool, size=size, replace=False)).tolist()
+        churn_events[start].append(("fault_kill", cohort))
+        rejoin_at[stop].append((cohort, False))
+
+    slot = 0
+
+    for t in range(T):
+        # rejoins land before this step's new departures.
+        for ids, graceful in rejoin_at[t]:
+            ids = [i for i in ids if not alive[i] or not subscribed[i]]
+            if not ids:
+                continue
+            if graceful:
+                events.sub_on[t][ids] = True
+                subscribed[ids] = True
+            else:
+                events.revive[t][ids] = True
+                alive[ids] = True
+        for kind, payload in churn_events[t]:
+            if kind == "phase":
+                ci = payload
+                ph = spec.churn[ci]
+                if ph.peers is not None:
+                    k0 = churn_cursor[ci]
+                    victims = [
+                        p for p in ph.peers[k0 : k0 + ph.kills_per_event]
+                        if 0 <= p < n
+                    ]
+                    churn_cursor[ci] = k0 + ph.kills_per_event
+                else:
+                    pool = np.flatnonzero(alive & subscribed & ~protected)
+                    take = min(ph.kills_per_event, len(pool))
+                    victims = (
+                        churn_rngs[ci].choice(pool, size=take, replace=False)
+                        .tolist() if take else []
+                    )
+                if not victims:
+                    continue
+                if ph.graceful:
+                    events.sub_off[t][victims] = True
+                    subscribed[victims] = False
+                else:
+                    events.kill[t][victims] = True
+                    alive[victims] = False
+                if ph.rejoin_after is not None:
+                    back = t + ph.rejoin_after
+                    if back <= T - 1:
+                        rejoin_at[back].append((victims, ph.graceful))
+            elif kind == "fault_kill":
+                ids = [i for i in payload if 0 <= i < n]
+                events.kill[t][ids] = True
+                alive[ids] = False
+            else:  # fault_leave -> graceful semantics (unsubscribe)
+                ids = [i for i in payload if 0 <= i < n]
+                events.sub_off[t][ids] = True
+                subscribed[ids] = False
+        for rng, src, valid, topic in requests[t]:
+            if src is None:
+                pool = np.flatnonzero(alive & subscribed & ~attackers)
+                if len(pool) == 0:
+                    raise ValueError(
+                        f"no eligible publisher alive at step {t}"
+                    )
+                src = int(rng.choice(pool))
+            elif not (0 <= src < n):
+                raise ValueError(f"publisher {src} out of range [0, {n})")
+            entry = {"src": src, "slot": slot, "valid": bool(valid)}
+            sched.add_publish(events, t, entry)
+            slot += 1
+
+    return CompiledScenario(
+        spec=spec, model=model, state=st, events=events,
+        attackers=attackers if attackers.any() else None,
+        target=target, n_publishes=n_publishes,
+    )

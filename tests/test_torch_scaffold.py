@@ -200,8 +200,8 @@ def test_graph_helpers_match_reference():
 
 
 def test_port_imports_with_jax_blocked():
-    """Every module of the port imports in a process where ``import jax``
-    fails."""
+    """Every module of the port imports, and its JSON data files load, in a
+    process where ``import jax`` fails."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -210,6 +210,9 @@ def test_port_imports_with_jax_blocked():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
+        "from go_libp2p_pubsub_torch.scenario import campaign, defense\n"
+        "assert campaign.load_trace()['spec']['model']['n_peers'] > 0\n"
+        "assert defense.load_promoted() == defense.PROMOTED_DEFENSE\n"
         "assert 'go_libp2p_pubsub_tpu' not in sys.modules\n"
         "print(len(names))\n"
     )
