@@ -61,7 +61,27 @@ Phases (each one fails the run, exit code != 0, on any error):
               and that no invalid message reached a peer other than its
               publisher, and one more run under
               ``torch.cuda.set_sync_debug_mode("warn")`` counting the
-              operations that synchronise.
+              operations that synchronise;
+7. serve    -- the streaming serving plane (the serving bench's
+              configuration at 100,000 peers, 2 topics, chunks of 8 rounds
+              x 8 publishes): the three workloads under a stepping clock
+              through ``StreamingEngine`` at 2,000 peers on the card and
+              on the CPU (every chunk's completions, delivered counts and
+              flight tail, the latencies, the delivery stats and every
+              state leaf equal) and the canon's ``multitopic_hot_
+              publisher`` on both; the committed 100,000-peer trace the
+              JAX package's engine wrote, replayed on the card with 0
+              mismatches; the timed run of the three workloads with the
+              real clock and the envelopes signed and verified inline by
+              the native library (msgs/s, ingest p50/p99, depth, silent
+              drops 0, forged spread <= 1, one prepared program, K1 =
+              topics x rounds and K2 = topics x heartbeats, peak memory);
+              three chunks under the sync-debug mode, which must
+              synchronise exactly twice each (the digest and the flight
+              tail reads); and 5 crash/restore cycles (``snapshot_every=
+              1``) that must lose and duplicate nothing, keep one prepared
+              program, and end equal to an uninterrupted engine, leaf for
+              leaf.
 
 The last line is ``{"ok": true, "device": {...}}``; nothing else is
 printed after a failure.
@@ -1028,6 +1048,298 @@ def scenario_phase(dev, card: str):
     return launches
 
 
+# -- phase 7: the streaming serving plane ----------------------------------------
+
+
+SERVE_SMALL_N = 2000         # the serve path's width for card-vs-CPU runs
+FAULT_CYCLES, FAULT_PER_CYCLE = 5, 16
+
+
+def _same_states(a, b, what: str) -> int:
+    """Every leaf of two states (any device) bit for bit; returns the
+    count compared."""
+    import numpy as np
+
+    from go_libp2p_pubsub_torch import bridge
+
+    n = 0
+    for (name, x), (_, y) in zip(_leaves(bridge.state_to_numpy(a)),
+                                 _leaves(bridge.state_to_numpy(b))):
+        x, y = np.asarray(x), np.asarray(y)
+        if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+            fail(f"{what}: differ in state leaf {name}")
+        n += 1
+    return n
+
+
+def _serve_launch_counts(model, rounds_from: int, rounds: int):
+    """K1 and K2 launches ``rounds`` rounds from step ``rounds_from`` must
+    make: one K1 per topic a round, one K2 per topic a heartbeat."""
+    hb = model.heartbeat_steps
+    beats = sum(1 for s in range(rounds_from, rounds_from + rounds)
+                if s % hb == hb - 1)
+    return {"gossip_propagate": model.t * rounds,
+            "gossip_exchange": model.t * beats}
+
+
+def serve_timed(dev, card: str):
+    """The serving bench's three workloads on one warmed 100k-peer engine
+    with the real clock and the envelopes verified inline by the native
+    library ahead of enqueue; returns (per-workload report, launches)."""
+    import torch
+
+    from go_libp2p_pubsub_torch.crypto import native
+    from go_libp2p_pubsub_torch.crypto.pipeline import (
+        Envelope, ValidationPipeline, sign_envelope)
+    from go_libp2p_pubsub_torch.models.multitopic import MultiTopicGossipSub
+    from go_libp2p_pubsub_torch.ops import cuda_ed25519, cuda_gossip
+    from go_libp2p_pubsub_torch.serve import IngestRing, StreamingEngine
+    from go_libp2p_pubsub_torch.serve import stream_trace as S
+    from go_libp2p_pubsub_torch.utils.metrics import quantiles
+
+    n = S.CONFIG["n_peers"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = MultiTopicGossipSub(device=dev, **S.CONFIG)
+    ring = IngestRing(capacity=S.CAPACITY, policy="block")
+    eng = StreamingEngine(model, ring, seed=0, **S.ENGINE)
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    pipe = ValidationPipeline(
+        backend="native", flush_threshold=1 << 20,
+        on_verdict_ctx=lambda env, ok, ctx: ring.push(
+            topic=ctx[0], payload=env.payload, publisher=ctx[1], valid=ok,
+            timeout=30.0))
+
+    def submit(item):
+        topic, src, forged, seed, seqno = item
+        env = sign_envelope(seed, f"topic-{topic}", seqno,
+                            b"stream payload %d" % seqno, backend="native")
+        if forged:  # tampered after signing: the inline verify must refuse
+            env = Envelope(env.topic, env.seqno, env.payload + b"!",
+                           env.pubkey, env.signature)
+        pipe.submit(env, ctx=(topic, src))
+
+    groups = S.workloads(n)
+    report = {}
+    cuda_gossip.reset_launches()
+    cuda_ed25519.reset_launches()
+    step0 = eng.steps_run
+    for name, feed in groups.items():
+        ring.max_depth = 0
+        acct0 = ring.accounting()
+        lat0, done0, pub0 = (len(eng.latencies_s), eng.completed,
+                             len(eng.publish_log))
+        chunks0, steps0 = eng.chunks_run, eng.steps_run
+        k0 = (cuda_gossip.propagate.launches,
+              cuda_gossip.exchange_select.launches)
+        t1 = time.perf_counter()
+        for group in feed:
+            for item in group:
+                submit(item)
+            pipe.flush()
+            eng.run_chunk()
+        eng.run_until_drained(max_chunks=64)
+        elapsed = time.perf_counter() - t1
+        acct = ring.accounting()
+        q = quantiles(eng.latencies_s[lat0:])
+        delivered = eng.completed - done0
+        report[name] = dict(
+            sustained_msgs_per_sec=delivered * float(n) / elapsed,
+            ingest_p50_s=q["p50"], ingest_p99_s=q["p99"],
+            delivered=delivered, published=len(eng.publish_log) - pub0,
+            max_queue_depth=ring.max_depth,
+            silent_drops=acct["silent_drops"] - acct0["silent_drops"],
+            chunks=eng.chunks_run - chunks0, rounds=eng.steps_run - steps0,
+            launches={"gossip_propagate": cuda_gossip.propagate.launches
+                      - k0[0],
+                      "gossip_exchange": cuda_gossip.exchange_select.launches
+                      - k0[1]},
+            launches_expected=_serve_launch_counts(
+                model, steps0, eng.steps_run - steps0),
+            prepared_programs=eng.compile_cache_size(), elapsed_s=elapsed)
+        if report[name]["silent_drops"] != 0:
+            fail(f"serve {name}: {report[name]['silent_drops']} silent drops")
+        if delivered != report[name]["published"]:
+            fail(f"serve {name}: delivered {delivered} of "
+                 f"{report[name]['published']}")
+    launches = {"gossip_propagate": cuda_gossip.propagate.launches,
+                "gossip_exchange": cuda_gossip.exchange_select.launches,
+                "ed25519_verify": cuda_ed25519.verify.launches}
+    want = _serve_launch_counts(model, step0, eng.steps_run - step0)
+    if {k: launches[k] for k in want} != want or launches["ed25519_verify"]:
+        fail(f"timed serve run launched {launches}, expected {want} and no E1")
+    delivered = model.stream_digest(eng.state)["delivered"].cpu().numpy()
+    spread = max(int(delivered[t, s]) for t, s in eng.invalid_published)
+    if len(eng.invalid_published) != S.N_FORGED or spread > 1:
+        fail(f"forged messages: {len(eng.invalid_published)} published, "
+             f"spread {spread}")
+    if eng.compile_cache_size() != 1:
+        fail(f"the timed run prepared {eng.compile_cache_size()} programs")
+    return dict(
+        workloads=report, warmup_s=warm_s, forged_spread=spread,
+        rounds=eng.steps_run - step0, launches=launches,
+        prepared_programs=eng.compile_cache_size(),
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        card=card), launches, (model, eng)
+
+
+def serve_sync_debug(model, eng, chunks: int = 3):
+    """A few loaded chunks under ``torch.cuda.set_sync_debug_mode("warn")``:
+    the synchronising operations of each chunk, which must be the two
+    reads (the digest and the flight tail)."""
+    import warnings
+
+    import torch
+
+    per_chunk = []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        for c in range(chunks):
+            for i in range(8):
+                eng.ring.push(topic=i % 2, payload=b"sync %d %d" % (c, i),
+                              publisher=(c * 8 + i) * 977 % model.n)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                eng.run_chunk()
+            per_chunk.append(sum("synchronizing CUDA operation"
+                                 in str(w.message) for w in caught))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if any(k != 2 for k in per_chunk):
+        fail(f"serve chunks synchronised {per_chunk} times, not twice each")
+    return per_chunk
+
+
+def serve_faulted(dev, model):
+    """Crash/restore cycles on the 100k model (``snapshot_every=1``): each
+    cycle pushes 16 messages and runs a chunk (which snapshots), then a
+    fresh ring and engine warm up and restore.  An uninterrupted engine
+    takes the same pushes; both drain and must end in the same state and
+    completions, with nothing lost or duplicated and no program prepared."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_torch.serve import IngestRing, StreamingEngine
+    from go_libp2p_pubsub_torch.serve import stream_trace as S
+    from go_libp2p_pubsub_torch.utils.metrics import quantiles
+
+    rng = np.random.default_rng(5)
+    pushes = [[(i % 2, b"faulted c%d i%d" % (c, i), int(rng.integers(model.n)))
+               for i in range(FAULT_PER_CYCLE)] for c in range(FAULT_CYCLES)]
+    ckpt_dir = tempfile.mkdtemp(prefix="serve-ckpt-")
+    path = os.path.join(ckpt_dir, "engine.ckpt")
+
+    def engine(seed, **kw):
+        ring = IngestRing(capacity=S.CAPACITY, policy="block")
+        return StreamingEngine(model, ring, seed=seed, **S.ENGINE, **kw), ring
+
+    try:
+        plain, pring = engine(1)
+        plain.warmup()
+        for cycle in pushes:
+            for topic, payload, src in cycle:
+                pring.push(topic=topic, payload=payload, publisher=src)
+            plain.run_chunk()
+        plain.run_until_drained(max_chunks=64)
+
+        eng, ring = engine(1, snapshot_path=path, snapshot_every=1)
+        eng.warmup()
+        recoveries, snap_s, snap_bytes, programs = [], 0.0, 0, []
+        for c, cycle in enumerate(pushes):
+            for topic, payload, src in cycle:
+                ring.push(topic=topic, payload=payload, publisher=src)
+            eng.run_chunk()
+            snap_s += eng.snapshot_seconds
+            snap_bytes = os.path.getsize(path)
+            t_crash = time.perf_counter()
+            eng, ring = engine(2 + c, snapshot_path=path, snapshot_every=1)
+            eng.warmup()
+            eng.restore()
+            torch.cuda.synchronize()
+            recoveries.append(time.perf_counter() - t_crash)
+            programs.append(eng.compile_cache_size())
+        eng.run_until_drained(max_chunks=64)
+        snap_s += eng.snapshot_seconds
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    pushed = FAULT_CYCLES * FAULT_PER_CYCLE
+    lost = pushed - eng.completed
+    if lost or eng.duplicate_completions or plain.completed != pushed:
+        fail(f"faulted: lost {lost}, duplicates {eng.duplicate_completions}, "
+             f"uninterrupted completed {plain.completed} of {pushed}")
+    if any(p != 1 for p in programs):
+        fail(f"faulted: prepared programs after the restores {programs}")
+    done = sorted((p.topic, p.slot, p.chash) for p in eng.publish_log)
+    if done != sorted((p.topic, p.slot, p.chash) for p in plain.publish_log):
+        fail("faulted: the restored run published other messages")
+    leaves = _same_states(eng.state, plain.state, "faulted vs uninterrupted")
+    rq = quantiles(recoveries)
+    return dict(cycles=FAULT_CYCLES, pushed=pushed, completed=eng.completed,
+                lost=lost, duplicates=eng.duplicate_completions,
+                recovery_p50_s=rq["p50"], recovery_p99_s=rq["p99"],
+                recovery_s=recoveries, snapshot_bytes=snap_bytes,
+                snapshot_s_total=snap_s,
+                snapshots=FAULT_CYCLES + 1,
+                prepared_programs_after_restores=programs,
+                leaves_equal_to_uninterrupted=leaves)
+
+
+def serve_phase(dev, card: str):
+    """Phase 7.  Returns the kernels' launches in the timed serve run."""
+    import torch
+
+    from go_libp2p_pubsub_torch import scenario
+    from go_libp2p_pubsub_torch.serve import stream_trace as S
+
+    t0 = time.perf_counter()
+    # Card = CPU at 2,000 peers: the trace's workloads under the stepping
+    # clock, and the canon's multitopic campaign.
+    docs, engines = [], []
+    for device in (dev, "cpu"):
+        doc, eng = S.port_replay(SERVE_SMALL_N, device=device)
+        docs.append(doc)
+        engines.append(eng)
+    diff = S.mismatches(docs[0], docs[1])
+    if diff or docs[0] != docs[1]:
+        fail(f"serve at {SERVE_SMALL_N} peers: card and CPU differ: {diff}")
+    compared = _same_states(engines[0].state, engines[1].state,
+                            f"serve at {SERVE_SMALL_N} peers")
+    name = "multitopic_hot_publisher"
+    canon = scenario.run_scenario(scenario.build(name), device=dev)
+    compared += _same_result(canon, scenario.run_scenario(
+        scenario.build(name), device="cpu"), name)
+    small_s = time.perf_counter() - t0
+
+    # The 100,000-peer trace the JAX package's engine wrote.
+    t1 = time.perf_counter()
+    doc = S.load_trace()
+    out, _ = S.port_replay(doc["config"]["n_peers"], device=dev)
+    diff = S.mismatches(out, doc)
+    if diff:
+        fail(f"100k serve replay: {len(diff)} mismatches: {diff[:8]}")
+    replay_s = time.perf_counter() - t1
+    del out
+    torch.cuda.empty_cache()
+
+    timed, launches, (model, eng) = serve_timed(dev, card)
+    sync_per_chunk = serve_sync_debug(model, eng)
+    faulted = serve_faulted(dev, model)
+    emit(dict(
+        phase="serve", n_peers=model.n, n_topics=model.t,
+        small_n_peers=SERVE_SMALL_N, small_values_compared=compared,
+        canon_verdict=canon.verdict.passed, small_runs_s=small_s,
+        trace_chunks=sum(len(w["chunks"]) for w in doc["workloads"].values()),
+        trace_mismatches=0, replay_s=replay_s,
+        sync_debug_warnings_per_chunk=sync_per_chunk,
+        faulted=faulted, **timed))
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -1061,9 +1373,11 @@ def main() -> None:
     records.append(check_ed25519(dev, e1_ptxas, imads, card))
     launches = main_path(dev, card)
     scenario_launches = scenario_phase(dev, card)
+    serve_launches = serve_phase(dev, card)
     for r in records:
         r["launches"] = launches[r["name"]]
         r["launches_scenario"] = scenario_launches[r["name"]]
+        r["launches_serve"] = serve_launches[r["name"]]
         emit(dict(phase="kernel", **r))
     emit({"kernels": records})
     print(card, flush=True)

@@ -1,10 +1,12 @@
 """State and parameter bridge between the JAX package and the port.
 
-A JAX ``GossipState`` (any NamedTuple with its fields, leaves as numpy or
-JAX arrays) converts into the port's ``GossipState`` and back through
-numpy, without importing JAX: it is how both sides start from one state.
+A JAX ``GossipState`` or ``MultiTopicState`` (any NamedTuple with its
+fields, leaves as numpy or JAX arrays) converts into the port's state of
+the same name and back through numpy, without importing JAX: it is how
+both sides start from one state, and how the streaming engine's snapshots
+keep the reference's file format.
 
-- uint32 leaves (the packed message windows and the threefry key) become
+- uint32 leaves (the packed message windows and the threefry keys) become
   int32 tensors with the same bit patterns (``.view``);
 - index planes keep their storage dtype (uint16 or int32);
 - ``step`` becomes the host int the port keeps;
@@ -21,12 +23,12 @@ import torch
 
 from .config import GossipSubParams, ScoreParams
 from .models.gossipsub import GossipState, resolve_device
+from .models.multitopic import MultiTopicState
 from .ops.scoring import GlobalCounters, TopicCounters
 
 # Leaves the JAX package stores as uint32 and the port as int32 patterns.
-U32_FIELDS = frozenset(
-    {"have_w", "fresh_w", "gossip_pend_w", "iwant_pend_w", "fresh_hist", "key"}
-)
+U32_FIELDS = frozenset({"have_w", "fresh_w", "gossip_pend_w", "iwant_pend_w",
+                        "fresh_hist", "key", "keys"})
 _NESTED = {"counters": TopicCounters, "gcounters": GlobalCounters}
 
 
@@ -45,22 +47,33 @@ def _to_torch(name: str, leaf, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def state_from_jax(st: Any, device="cuda") -> GossipState:
-    """Reference ``GossipState`` -> the port's, on ``device`` (the card by
-    default, like ``GossipSub``; raises without one)."""
+def _from_jax(cls, st: Any, device):
     device = resolve_device(device)
     fields: Dict[str, Any] = {}
-    for name in GossipState._fields:
+    for name in cls._fields:
         leaf = getattr(st, name)
         if name == "step":
             fields[name] = int(np.asarray(leaf))
         elif name in _NESTED:
-            cls = _NESTED[name]
-            fields[name] = cls(*(
-                _to_torch(f, getattr(leaf, f), device) for f in cls._fields))
+            nested = _NESTED[name]
+            fields[name] = nested(*(
+                _to_torch(f, getattr(leaf, f), device)
+                for f in nested._fields))
         else:
             fields[name] = _to_torch(name, leaf, device)
-    return GossipState(**fields)
+    return cls(**fields)
+
+
+def state_from_jax(st: Any, device="cuda") -> GossipState:
+    """Reference ``GossipState`` -> the port's, on ``device`` (the card by
+    default, like ``GossipSub``; raises without one)."""
+    return _from_jax(GossipState, st, device)
+
+
+def multitopic_state_from_jax(st: Any, device="cuda") -> MultiTopicState:
+    """Reference ``MultiTopicState`` (or its numpy form) -> the port's, on
+    ``device`` (the card by default; raises without one)."""
+    return _from_jax(MultiTopicState, st, device)
 
 
 def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
@@ -70,19 +83,41 @@ def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
     return a
 
 
-def state_to_numpy(st: GossipState) -> GossipState:
-    """The port's state -> the same NamedTuple with numpy leaves in the
-    reference's dtypes (uint32 windows and key, ``step`` as int32), ready
-    for ``jax_GossipState(*...)`` after ``jnp.asarray`` of each leaf."""
+def _spec(name: str, t: torch.Tensor) -> np.ndarray:
+    dt = np.uint32 if name in U32_FIELDS else t.new_empty(0).cpu().numpy().dtype
+    return np.empty(tuple(t.shape), dt)
+
+
+def _numpy_of(st, leaf_fn=_to_numpy):
     fields: Dict[str, Any] = {}
-    for name in GossipState._fields:
+    for name in type(st)._fields:
         leaf = getattr(st, name)
         if name == "step":
             fields[name] = np.asarray(leaf, np.int32)
         elif name in _NESTED:
-            cls = _NESTED[name]
-            fields[name] = cls(*(
-                _to_numpy(f, getattr(leaf, f)) for f in cls._fields))
+            nested = _NESTED[name]
+            fields[name] = nested(*(
+                leaf_fn(f, getattr(leaf, f)) for f in nested._fields))
         else:
-            fields[name] = _to_numpy(name, leaf)
-    return GossipState(**fields)
+            fields[name] = leaf_fn(name, leaf)
+    return type(st)(**fields)
+
+
+def state_to_numpy(st: GossipState) -> GossipState:
+    """The port's state (either model's) -> the same NamedTuple with numpy
+    leaves in the reference's dtypes (uint32 windows and keys, ``step`` as
+    int32), ready for ``jax_GossipState(*...)`` after ``jnp.asarray`` of
+    each leaf."""
+    return _numpy_of(st)
+
+
+def multitopic_state_to_numpy(st: MultiTopicState) -> MultiTopicState:
+    """The port's ``MultiTopicState`` -> numpy leaves in the reference's
+    dtypes (uint32 windows and keys, ``step`` as int32)."""
+    return _numpy_of(st)
+
+
+def multitopic_state_spec(st: MultiTopicState) -> MultiTopicState:
+    """The numpy form's shapes and dtypes without reading the device: each
+    leaf an uninitialised array (a checkpoint restore's template)."""
+    return _numpy_of(st, _spec)

@@ -390,6 +390,7 @@ class GossipSub:
         builder=None,
         graft_spammers: Optional[np.ndarray] = None,
         max_edge_delay: int = 0,
+        index_dtype_override=None,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -398,8 +399,18 @@ class GossipSub:
         self.m = msg_window
         self.w = bitpack.n_words(msg_window)
         self.conn_degree = conn_degree
-        self.idx_dtype = index_dtype(n_peers)
-        self.rev_dtype = index_dtype(n_slots)
+        # Narrow index storage by default; ``index_dtype_override=np.int32``
+        # forces the wide storage (the reference's identity-test arm).
+        if index_dtype_override is None:
+            self.idx_dtype = index_dtype(n_peers)
+            self.rev_dtype = index_dtype(n_slots)
+        else:
+            dt = np.dtype(index_dtype_override)
+            if dt.kind == "u" and n_peers + 1 > np.iinfo(dt).max:
+                raise ValueError(
+                    f"index_dtype_override={dt.name} cannot hold "
+                    f"n + 1 = {n_peers + 1} (max {np.iinfo(dt).max})")
+            self.idx_dtype = self.rev_dtype = dt
         self.params = params or GossipSubParams()
         self.score_params = score_params or ScoreParams()
         self.heartbeat_steps = heartbeat_steps
@@ -418,6 +429,30 @@ class GossipSub:
 
     def _t(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    # Value semantics (the reference's ``_config_key``): equal configs on
+    # one device are one model, so caches keyed on the model (the streaming
+    # engine's prepared chunk programs) survive a fresh, equal instance.  A
+    # builder without a ``config_key`` falls back to identity.
+    def _config_key(self):
+        builder_key = getattr(self.builder, "config_key", None)
+        if self.builder is not None and builder_key is None:
+            return id(self)
+        return (
+            builder_key, type(self), str(self.device), self.n, self.k, self.m,
+            self.conn_degree, self.params, self.score_params,
+            self.heartbeat_steps, self.max_edge_delay, self.fused_prologue,
+            str(self.idx_dtype), str(self.rev_dtype),
+            None if self.graft_spammers is None
+            else bytes(self.graft_spammers.cpu().numpy()),
+        )
+
+    def __eq__(self, other):
+        return (type(other) is type(self)
+                and self._config_key() == other._config_key())
+
+    def __hash__(self):
+        return hash(self._config_key())
 
     def build_graph(self, seed: int = 0):
         """Connection topology -> (nbrs, rev, nbr_valid, outbound) tensors

@@ -2,9 +2,10 @@
 
 The model's randomness is a key carried in the state, as in the JAX
 package: every heartbeat splits it and draws uniforms for the mesh, gossip,
-IWANT-priority, fanout and PX choices.  This module reproduces the four
-functions that path needs -- ``threefry2x32``, ``PRNGKey``, ``split`` and
-``uniform`` -- exactly as jax draws them with ``jax_threefry_partitionable``
+IWANT-priority, fanout and PX choices.  This module reproduces the
+functions that path needs -- ``threefry2x32``, ``PRNGKey``, ``split``,
+``fold_in`` (the multi-topic model's per-topic keys) and ``uniform`` --
+exactly as jax draws them with ``jax_threefry_partitionable``
 on (the default since jax 0.5): the counter of element i of a draw is the
 64-bit flat index i, split into a (hi, lo) pair of 32-bit words.
 
@@ -86,6 +87,16 @@ def split(key: torch.Tensor, num: Union[int, Sequence[int]] = 2) -> torch.Tensor
     """``jax.random.split``: int32[2] key -> int32[num, 2] new keys."""
     shape = (num,) if isinstance(num, int) else tuple(num)
     b1, b2 = _hash(key, shape)
+    return _i32(torch.stack([b1, b2], dim=-1))
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in``: the threefry hash of the counter pair
+    ``(0, data)`` under ``key``, ``data`` taken as uint32 (an int, or an
+    int tensor of any shape, which folds each element) -> int32[..., 2]."""
+    k = _u32(key)
+    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _M32
+    b1, b2 = threefry2x32(k[0], k[1], torch.zeros_like(d), d)
     return _i32(torch.stack([b1, b2], dim=-1))
 
 

@@ -2,6 +2,7 @@
 
     python -m go_libp2p_pubsub_torch.profile_rollout [--peers 100000]
     python -m go_libp2p_pubsub_torch.profile_rollout --campaign
+    python -m go_libp2p_pubsub_torch.profile_rollout --serve
 
 Builds the headline closed loop's model (GossipSub, 32 slots, degree 16,
 128-message window, seed 0, 128 publishes of which 4 invalid), runs one
@@ -32,6 +33,15 @@ campaign of ``scenario/traces/campaign_100000.trace.json`` (scaled to
 ``rollout_events(record=True)`` over its 48 rounds, with two more ranges,
 the event application before each round (``_apply_events``, publishes
 included) and the adversary channels (``_campaign_record``).
+
+With ``--serve`` the readings are of one serving chunk at ``--peers``:
+the streaming engine of ``serve/stream_trace.py``'s configuration (2
+topics, chunks of 8 rounds x 8 publishes), warmed, and each run pushes 8
+messages to its ring and runs one ``run_chunk``.  The ranges are the
+single-topic round each topic runs (``_propagate``, one call a topic a
+round), the multi-topic ``_heartbeat``, the recorder's recount of the
+chunk's last round (``flight_record_round``), the publishes
+(``publish``) and the completion digest (``stream_digest``).
 
 Prints one JSON object.  Needs a CUDA card.
 """
@@ -92,6 +102,45 @@ def _campaign(dev, n_peers: int):
         target=comp.target, record=True), comp.spec.n_steps
 
 
+def _serve(dev, n_peers: int):
+    """(model, one loaded serving chunk, rounds) at ``n_peers``."""
+    from .models.multitopic import MultiTopicGossipSub
+    from .serve import IngestRing, StreamingEngine
+    from .serve import stream_trace as S
+    from .serve.engine import _program
+
+    model = MultiTopicGossipSub(device=dev, **dict(S.CONFIG, n_peers=n_peers))
+    ring = IngestRing(capacity=S.CAPACITY, policy="block")
+    eng = StreamingEngine(model, ring, seed=0, **S.ENGINE)
+    eng.warmup()
+    # The ranges go on the model the prepared program runs: an equal model
+    # prepared earlier in the process owns it.
+    model = _program(model, eng.chunk_steps, eng.pub_width).model
+    pushed = [0]
+
+    def run():
+        for _ in range(S.ENGINE["pub_width"]):
+            j = pushed[0]
+            pushed[0] += 1
+            ring.push(topic=j % model.t, payload=b"profile %d" % j,
+                      publisher=(j * 7919) % n_peers)
+        eng.run_chunk()
+    return model, run, S.ENGINE["chunk_steps"]
+
+
+# The ranges of each path: (owner of the method, its name, label).
+def _model_targets(gs, names):
+    return [(gs, name, name) for name in names]
+
+
+def _serve_targets(model):
+    return [(model.gs, "_propagate", "_propagate"),
+            (model, "_heartbeat", "_heartbeat"),
+            (model, "flight_record_round", "flight_record_round"),
+            (model, "publish", "publish"),
+            (model, "stream_digest", "stream_digest")]
+
+
 def _timed(run) -> float:
     t0 = time.perf_counter()
     run()
@@ -114,9 +163,10 @@ def _busy_ms(events) -> float:
 
 
 @contextlib.contextmanager
-def _ranges(gs: GossipSub, model_ranges=MODEL_RANGES):
-    """Wrap the PRNG's functions, the model's round halves and the kernel
-    wrappers in ``record_function`` ranges for the length of the block."""
+def _ranges(targets):
+    """Wrap the PRNG's functions, the kernel wrappers and the model methods
+    ``targets`` ((object, method name, label) each) in ``record_function``
+    ranges for the length of the block."""
     from torch.profiler import record_function
 
     def wrap(label, fn):
@@ -133,17 +183,18 @@ def _ranges(gs: GossipSub, model_ranges=MODEL_RANGES):
              for module, name, label in saved]
     for module, name, label, fn in saved:
         setattr(module, name, wrap(label, fn))
-    for name in model_ranges:
-        setattr(gs, name, wrap(name, getattr(gs, name)))
+    for obj, name, label in targets:
+        setattr(obj, name, wrap(label, getattr(obj, name)))
     try:
-        yield [label for _, _, label, _ in saved] + list(model_ranges)
+        yield [label for _, _, label, _ in saved] + [
+            label for _, _, label in targets]
     finally:
         for module, name, _, fn in saved:
             if hasattr(fn, "launches"):
                 fn.launches = getattr(module, name).launches
             setattr(module, name, fn)
-        for name in model_ranges:
-            delattr(gs, name)
+        for obj, name, _ in targets:
+            delattr(obj, name)
 
 
 def _kernel_events(events, kernel: str) -> list:
@@ -203,7 +254,8 @@ def _range_device_ms(events, labels):
              for label in labels}, port)
 
 
-def profile(n_peers: int, campaign: bool = False) -> dict:
+def profile(n_peers: int, campaign: bool = False,
+            serve: bool = False) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_rollout needs a CUDA card")
     from torch.autograd import DeviceType
@@ -211,7 +263,8 @@ def profile(n_peers: int, campaign: bool = False) -> dict:
     from torch.profiler import profile as torch_profile
 
     dev = torch.device("cuda", 0)
-    gs, run, rounds = (_campaign if campaign else _closed_loop)(dev, n_peers)
+    build = _serve if serve else _campaign if campaign else _closed_loop
+    gs, run, rounds = build(dev, n_peers)
     _timed(run)
     unprofiled_ms = [_timed(run) for _ in range(3)]
 
@@ -232,8 +285,9 @@ def profile(n_peers: int, campaign: bool = False) -> dict:
             "launches": len(launched),
             "device_ms": sum(e.time_range.elapsed_us() for e in launched) / 1e3}
 
-    model_ranges = MODEL_RANGES + (CAMPAIGN_RANGES if campaign else ())
-    with _ranges(gs, model_ranges) as labels:
+    targets = (_serve_targets(gs) if serve else _model_targets(
+        gs, MODEL_RANGES + (CAMPAIGN_RANGES if campaign else ())))
+    with _ranges(targets) as labels:
         with torch_profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) as prof_ranges:
             _timed(run)
@@ -254,7 +308,8 @@ def profile(n_peers: int, campaign: bool = False) -> dict:
     return {
         "device": torch.cuda.get_device_name(0),
         "n_peers": n_peers,
-        "path": "rollout_events (campaign)" if campaign else "rollout",
+        "path": ("serving chunk" if serve else "rollout_events (campaign)"
+                 if campaign else "rollout"),
         "rounds": rounds,
         "unprofiled_wall_ms": unprofiled_ms,
         "traced_wall_ms": wall_ms,
@@ -273,8 +328,10 @@ def main() -> None:
     ap.add_argument("--peers", type=int, default=100_000)
     ap.add_argument("--campaign", action="store_true",
                     help="profile the composite campaign's rollout_events")
+    ap.add_argument("--serve", action="store_true",
+                    help="profile one loaded streaming-engine chunk")
     args = ap.parse_args()
-    print(json.dumps(profile(args.peers, args.campaign)))
+    print(json.dumps(profile(args.peers, args.campaign, args.serve)))
 
 
 if __name__ == "__main__":

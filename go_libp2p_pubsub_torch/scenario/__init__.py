@@ -3,7 +3,7 @@ the card.
 
 - :mod:`.spec` -- the declarative layer (:class:`ScenarioSpec` + JSON);
 - :mod:`.compiler` -- lowering to ``ops.schedule`` event rows
-  (``gossipsub`` family);
+  (``gossipsub`` and ``multitopic`` families);
 - :mod:`.runner` -- execution, traces, bit-for-bit replay;
 - :mod:`.slo` -- verdicts graded from the flight record;
 - :mod:`.canon` -- the named, committed campaign suite;
@@ -49,7 +49,8 @@ from .spec import (
 
 def sim_supported(spec: ScenarioSpec) -> bool:
     """Can this spec be lowered onto the sim plane?  Live-only and
-    streaming-only scenarios have no closed-loop lowering."""
+    streaming-only scenarios have no closed-loop lowering (the canon's
+    sim campaigns: the gossipsub ones and ``multitopic_hot_publisher``)."""
     return not spec.live_only and not spec.streaming_only
 
 

@@ -1,24 +1,27 @@
 """Scenario compiler: lower a :class:`ScenarioSpec` to event tensors.
 
-The JAX package's ``scenario/compiler.py`` for the ``gossipsub`` family,
-in the port.  The lowering is a pure host-side function of the spec: every
+The JAX package's ``scenario/compiler.py`` for the ``gossipsub`` and
+``multitopic`` families, in the port.  The lowering is a pure host-side function of the spec: every
 random draw (churn victims, workload publishers, link cohorts) comes from
 a ``np.random.default_rng([seed, tag, index])`` substream, so the same
 spec always produces the same event tensors -- the foundation of
 bit-for-bit replay, and what lets the port replay a trace the JAX package
 wrote.  The output is a :class:`CompiledScenario`: the model on
 ``device``, its initialized (and possibly adversary-prepared) state, and
-one ``ops.schedule.GossipEvents`` of host numpy rows whose leading axis is
-the step of the model's ``rollout_events``.
+one ``ops.schedule.GossipEvents`` (``MultiTopicEvents`` for the
+multitopic family) of host numpy rows whose leading axis is the step of
+the model's ``rollout_events``.  Multitopic lowers only the ``spam``/
+``promise_spam``/``sybil`` attack kinds and refuses graceful churn, fault
+leaves and rejoins, as the reference does.
 
 The state surgery of the attack waves (sybil ``ip_group``, the cold-boot
 mesh and counter rewrite, the eclipse attacker draw) reads the state back
 to numpy exactly as the reference does, and puts it back on the model's
 device in the state's storage dtypes.
 
-The other families (``multitopic``, ``treecast``, ``rlnc``, ``hybrid``)
-are not ported yet and raise ``NotImplementedError`` naming their ROADMAP
-item.
+The other families (``treecast``, ``rlnc``, ``hybrid``) are not ported
+yet and raise ``NotImplementedError`` naming their ROADMAP item, as does
+``compile_streaming_plan``.
 """
 
 from __future__ import annotations
@@ -41,7 +44,6 @@ _TAG_WORKLOAD, _TAG_CHURN, _TAG_LINK, _TAG_ATTACK = 1, 2, 3, 4
 # The families the port does not run yet, with the ROADMAP item that
 # ports each one.
 _NOT_PORTED = {
-    "multitopic": "ROADMAP A7 (multi-topic model)",
     "treecast": "ROADMAP A8 (router family and tree)",
     "rlnc": "ROADMAP A9 (coded plane)",
     "hybrid": "ROADMAP A9 (coded plane)",
@@ -55,7 +57,7 @@ class CompiledScenario:
     spec: ScenarioSpec
     model: Any
     state: Any
-    events: Any                       # ops.schedule.GossipEvents (host numpy)
+    events: Any                       # ops.schedule.*Events (host numpy)
     attackers: Optional[np.ndarray]   # bool[N] union of wave attackers
     target: Optional[int]             # eclipse target (record channel)
     n_publishes: int
@@ -79,13 +81,21 @@ def _check_family(spec: ScenarioSpec) -> None:
         raise NotImplementedError(
             f"the {spec.family} family is not ported yet: "
             f"{_NOT_PORTED[spec.family]}")
-    if spec.family != "gossipsub":
+    if spec.family not in ("gossipsub", "multitopic"):
         raise ValueError(f"unknown scenario family {spec.family!r}")
 
 
 def build_model(spec: ScenarioSpec, graft_spammers=None, device="cuda"):
     """Construct the spec's model on ``device`` (host side; no state yet)."""
     _check_family(spec)
+    if spec.family == "multitopic":
+        from ..models.multitopic import MultiTopicGossipSub
+
+        if "topology" in spec.model:
+            raise ValueError("model topology dicts are gossipsub-only")
+        if graft_spammers is not None:
+            raise ValueError("graft_spam waves are gossipsub-only")
+        return MultiTopicGossipSub(device=device, **_split_model_kwargs(spec))
     from ..models.gossipsub import GossipSub
 
     kw = _split_model_kwargs(spec)
@@ -102,6 +112,12 @@ def build_model(spec: ScenarioSpec, graft_spammers=None, device="cuda"):
 # Both targeted kinds need the flight recorder's single target channel, so
 # a scenario carries at most one of them.
 _TARGETED_KINDS = ("eclipse", "cold_boot_eclipse")
+# The taxonomy extension rides the gossipsub event tensors (promo/silence)
+# and score surgery that the multitopic plane does not carry.
+_GOSSIP_ONLY_KINDS = (
+    "cold_boot_eclipse", "covert_flash", "score_farm", "self_promo_ihave",
+    "partition_flood",
+)
 
 
 def _targeted_wave(spec: ScenarioSpec):
@@ -125,15 +141,22 @@ def _window(start: int, stop: Optional[int], n_steps: int) -> Tuple[int, int]:
 def compile_scenario(spec: ScenarioSpec, device="cuda") -> CompiledScenario:
     """Lower ``spec`` -> (model on ``device``, initialized state, events)."""
     _check_family(spec)
-    return _compile_gossipsub(spec, device)
+    return _compile_gossip_like(spec, device)
+
+
+def compile_streaming_plan(spec: ScenarioSpec):
+    """The streaming plane's lowering is not ported yet."""
+    raise NotImplementedError(
+        "compile_streaming_plan is not ported yet: ROADMAP A7b (streaming "
+        "runner, controller and fault lowering)")
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def _compile_gossipsub(spec: ScenarioSpec, device) -> CompiledScenario:
-    T = spec.n_steps
+def _compile_gossip_like(spec: ScenarioSpec, device) -> CompiledScenario:
+    T, multitopic = spec.n_steps, spec.family == "multitopic"
 
     # -- model + state (eclipse needs the converged mesh, so init first;
     #    graft_spam rebinds the constructor and re-inits with the same seed,
@@ -150,7 +173,11 @@ def _compile_gossipsub(spec: ScenarioSpec, device) -> CompiledScenario:
     wave_att: List[np.ndarray] = []
     for w in spec.attacks:
         wa = np.zeros(n, bool)
+        if multitopic and w.kind in _GOSSIP_ONLY_KINDS:
+            raise ValueError(f"{w.kind} waves are gossipsub-only")
         if w.kind in _TARGETED_KINDS:
+            if multitopic:
+                raise ValueError("eclipse waves are gossipsub-only")
             nbrs = _host(decode_index_plane(st.nbrs))
             if not (0 <= w.target < n):
                 raise ValueError(f"{w.kind} target {w.target} out of range")
@@ -179,6 +206,8 @@ def _compile_gossipsub(spec: ScenarioSpec, device) -> CompiledScenario:
                 att_ids = conn[: w.n_attackers]
             wa[att_ids] = True
         else:
+            if w.kind == "graft_spam" and multitopic:
+                raise ValueError("graft_spam waves are gossipsub-only")
             wa[: w.n_attackers] = True
         wave_att.append(wa)
         attackers |= wa
@@ -301,7 +330,10 @@ def _compile_gossipsub(spec: ScenarioSpec, device) -> CompiledScenario:
         )
     pub_width = max(1, max((len(r) for r in requests), default=0))
 
-    events = sched.empty_gossip_events(T, n, pub_width)
+    if multitopic:
+        events = sched.empty_multitopic_events(T, n, pub_width)
+    else:
+        events = sched.empty_gossip_events(T, n, pub_width)
 
     # -- attack windows -> mute / silence / promo tensors (wave-scoped).
     for ai, w in enumerate(spec.attacks):
@@ -330,7 +362,7 @@ def _compile_gossipsub(spec: ScenarioSpec, device) -> CompiledScenario:
                 events.promo_off[stop] |= wa
                 events.mute_off[stop] |= wa
 
-    if events.silence.any() and model.max_edge_delay:
+    if not multitopic and events.silence.any() and model.max_edge_delay:
         raise ValueError(
             "eclipse silence requires the ideal eager fabric "
             "(max_edge_delay == 0): squelching fresh_w would desync the "
@@ -361,7 +393,8 @@ def _compile_gossipsub(spec: ScenarioSpec, device) -> CompiledScenario:
     #    host mirror of liveness/subscription so victims and publishers are
     #    always drawn from peers actually present at that step.
     alive = np.ones(n, bool)
-    subscribed = st.subscribed.cpu().numpy().copy()
+    subscribed = _host(st.subscribed).copy() if not multitopic else (
+        _host(st.subscribed).any(axis=0))
     protected = attackers.copy()
     if target is not None:
         protected[target] = True
@@ -370,6 +403,8 @@ def _compile_gossipsub(spec: ScenarioSpec, device) -> CompiledScenario:
     churn_events: List[List[tuple]] = [[] for _ in range(T)]  # (phase, kind)
     for ci, ph in enumerate(spec.churn):
         start, stop = _window(ph.start, ph.stop, T)
+        if ph.graceful and multitopic:
+            raise ValueError("graceful churn is not lowered for multitopic")
         for t in range(start, stop, ph.every):
             churn_events[t].append(("phase", ci))
     if spec.faults:
@@ -381,6 +416,8 @@ def _compile_gossipsub(spec: ScenarioSpec, device) -> CompiledScenario:
             t = int(t_str)
             if 0 <= t < T:
                 churn_events[t].append(("fault_leave", ids))
+            if multitopic:
+                raise ValueError("fault leaves are not lowered for multitopic")
 
     churn_rngs = [
         _rng(spec.seed, _TAG_CHURN, ci) for ci in range(len(spec.churn))
@@ -418,6 +455,11 @@ def _compile_gossipsub(spec: ScenarioSpec, device) -> CompiledScenario:
                 events.sub_on[t][ids] = True
                 subscribed[ids] = True
             else:
+                if multitopic:
+                    raise ValueError(
+                        "rejoin is not lowered for multitopic (no revive "
+                        "event tensor)"
+                    )
                 events.revive[t][ids] = True
                 alive[ids] = True
         for kind, payload in churn_events[t]:
@@ -469,6 +511,10 @@ def _compile_gossipsub(spec: ScenarioSpec, device) -> CompiledScenario:
             elif not (0 <= src < n):
                 raise ValueError(f"publisher {src} out of range [0, {n})")
             entry = {"src": src, "slot": slot, "valid": bool(valid)}
+            if multitopic:
+                if not (0 <= topic < model.t):
+                    raise ValueError(f"topic {topic} out of range")
+                entry["topic"] = topic
             sched.add_publish(events, t, entry)
             slot += 1
 

@@ -47,12 +47,14 @@ class ScenarioResult:
 def _run_compiled(
     comp: CompiledScenario,
 ) -> Tuple[Any, Dict[str, np.ndarray]]:
-    """One campaign's ``rollout_events`` (record=True) -> (final state,
-    host flight record)."""
-    return comp.model.rollout_events(
-        comp.state, comp.events, attackers=comp.attackers,
-        target=comp.target, record=True,
-    )
+    """One campaign's ``rollout_events`` (record=True) of the family's
+    model -> (final state, host flight record)."""
+    if comp.spec.family == "gossipsub":
+        return comp.model.rollout_events(
+            comp.state, comp.events, attackers=comp.attackers,
+            target=comp.target, record=True,
+        )
+    return comp.model.rollout_events(comp.state, comp.events, record=True)
 
 
 def run_scenario(
@@ -61,12 +63,9 @@ def run_scenario(
     device="cuda",
 ) -> ScenarioResult:
     """Compile (if needed, on ``device``) and execute one scenario, verdict
-    included.  ``trace_out`` (the reference's ``obs-record-trace/1``
-    artifact) needs the port of ``obs/export.py`` and raises until then."""
-    if trace_out is not None:
-        raise NotImplementedError(
-            "trace_out needs obs/export.py, which is not ported yet "
-            "(ROADMAP A7)")
+    included.  ``trace_out`` writes the reference's ``obs-record-trace/1``
+    artifact: the flight record's per-step series as Chrome counter
+    events, on a step-index time axis."""
     comp = (
         spec_or_compiled
         if isinstance(spec_or_compiled, CompiledScenario)
@@ -74,6 +73,13 @@ def run_scenario(
     )
     final, record = _run_compiled(comp)
     verdict = slo_mod.evaluate(comp.spec, record, comp.n_publishes)
+    if trace_out is not None:
+        from ..obs.export import build_record_artifact, write_json
+
+        write_json(trace_out, build_record_artifact(
+            plane="sim", scenario=comp.spec.name,
+            verdict=verdict.to_dict(), record=record,
+        ))
     return ScenarioResult(
         compiled=comp, final_state=final, record=record, verdict=verdict
     )

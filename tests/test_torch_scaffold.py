@@ -201,7 +201,8 @@ def test_graph_helpers_match_reference():
 
 def test_port_imports_with_jax_blocked():
     """Every module of the port imports, and its JSON data files load, in a
-    process where ``import jax`` fails."""
+    process where ``import jax`` fails; the serving plane's modules are
+    among them."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -212,6 +213,11 @@ def test_port_imports_with_jax_blocked():
         "for n in names: importlib.import_module(n)\n"
         "from go_libp2p_pubsub_torch.scenario import campaign, defense\n"
         "assert campaign.load_trace()['spec']['model']['n_peers'] > 0\n"
+        "from go_libp2p_pubsub_torch.serve import stream_trace\n"
+        "assert stream_trace.load_trace()['config']['n_peers'] > 0\n"
+        "for m in ('models.multitopic', 'serve.engine', 'serve.ingest',\n"
+        "          'serve.tuning', 'utils.checkpoint', 'obs.export'):\n"
+        "    assert p.__name__ + '.' + m in names, m\n"
         "assert defense.load_promoted() == defense.PROMOTED_DEFENSE\n"
         "assert 'go_libp2p_pubsub_tpu' not in sys.modules\n"
         "print(len(names))\n"

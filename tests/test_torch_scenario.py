@@ -174,16 +174,15 @@ def test_topology_builders_match_reference(topo):
 
 
 def test_unported_families_raise_not_implemented():
-    for name in ("degraded_links_rlnc", "tree_churn_heal",
-                 "multitopic_hot_publisher"):
+    for name in ("degraded_links_rlnc", "tree_churn_heal"):
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             tscn.compile_scenario(tscn.build(name), device="cpu")
     hybrid = dataclasses.replace(tscn.build("steady_state"), family="hybrid")
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         tscn.compile_scenario(hybrid, device="cpu")
-    with pytest.raises(NotImplementedError, match="obs/export"):
-        tscn.run_scenario(tscn.build("steady_state"), trace_out="x.json",
-                          device="cpu")
+    from go_libp2p_pubsub_torch.scenario.compiler import compile_streaming_plan
+    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
+        compile_streaming_plan(tscn.build("streaming_steady"))
 
 
 def test_per_edge_delay_rejects_eclipse_silence():
