@@ -81,7 +81,25 @@ Phases (each one fails the run, exit code != 0, on any error):
               tail reads); and 5 crash/restore cycles (``snapshot_every=
               1``) that must lose and duplicate nothing, keep one prepared
               program, and end equal to an uninterrupted engine, leaf for
-              leaf.
+              leaf.  Then the control and fault layers: the canon's four
+              multitopic streaming campaigns (64 peers) through
+              ``scenario.run_streaming_scenario`` under the stepping
+              clock, against the trace the JAX package's runner wrote (0
+              mismatches: verdicts, records, accounting, completions and
+              latencies chunk by chunk); the crash campaign (traced,
+              ``trace_out=``) and the verifier-crash campaign at 100,000
+              peers, which must pass with nothing lost, duplicated or
+              silently dropped, at most one program prepared (their
+              geometry's), every sampled span closed and the reopened ones
+              annotated with the crash gap, K1 = topics x rounds, K2 =
+              topics x heartbeats and no E1; the crash campaign at 2,000
+              peers on the card and on the CPU (every channel and state
+              leaf equal); the serving bench's ``degraded`` ladder (the
+              tiers must reach shed_priority and drop_oldest and return to
+              normal, 0 silent drops); and its ``obs`` A/B on the 100k
+              model (traced and untraced arms alternating, three repeats,
+              equal completions, every span closed, no program prepared;
+              the overhead is printed against the 2% budget).
 
 The last line is ``{"ok": true, "device": {...}}``; nothing else is
 printed after a failure.
@@ -1289,8 +1307,351 @@ def serve_faulted(dev, model):
                 leaves_equal_to_uninterrupted=leaves)
 
 
+SERVE_CRASH, SERVE_VERIFIER = ("streaming_engine_crash_recovery",
+                              "streaming_verifier_crash")
+
+
+class _DispatchCounter:
+    """Counts, while installed, the streaming engines' chunk dispatches
+    (warmups included) and their rounds, and the model's heartbeats: the
+    chunks' and the three of each fresh state's ``init``.  Every round
+    runs K1 once per topic and every heartbeat K2 once per topic."""
+
+    def __enter__(self):
+        from go_libp2p_pubsub_torch.models.multitopic import (
+            MultiTopicGossipSub)
+        from go_libp2p_pubsub_torch.serve.engine import StreamingEngine
+
+        self.patched = [(StreamingEngine, "_dispatch",
+                         StreamingEngine._dispatch),
+                        (MultiTopicGossipSub, "_heartbeat",
+                         MultiTopicGossipSub._heartbeat)]
+        self.dispatches = self.rounds = self.chunk_beats = self.beats = 0
+        dispatch, heartbeat = (orig for _, _, orig in self.patched)
+
+        def counted_dispatch(eng, events, n_items=0):
+            hb = eng.model.heartbeat_steps
+            if eng.chunk_steps % hb:
+                fail(f"a chunk of {eng.chunk_steps} rounds does not hold a "
+                     f"whole number of heartbeats (every {hb})")
+            self.dispatches += 1
+            self.rounds += eng.chunk_steps
+            self.chunk_beats += eng.chunk_steps // hb
+            return dispatch(eng, events, n_items)
+
+        def counted_heartbeat(model, st):
+            self.beats += 1
+            return heartbeat(model, st)
+
+        StreamingEngine._dispatch = counted_dispatch
+        MultiTopicGossipSub._heartbeat = counted_heartbeat
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, orig in self.patched:
+            setattr(cls, name, orig)
+        return False
+
+
+def serve_canon_replay(dev):
+    """The canon's four multitopic streaming campaigns (64 peers) through
+    the port's runner on the card under the stepping clock, against the
+    trace the JAX package's runner wrote: 0 mismatches on every
+    deterministic channel."""
+    from go_libp2p_pubsub_torch.scenario import stream_canon
+
+    t0 = time.perf_counter()
+    doc = stream_canon.load_trace()
+    out = stream_canon.port_replay(dev, doc=doc)
+    bad = {name: diff for name, diff in out.items() if diff}
+    if bad or sorted(out) != sorted(stream_canon.CAMPAIGNS):
+        fail(f"streaming canon replay: mismatches {bad}")
+    return dict(campaigns=sorted(out), mismatches=0,
+                verdicts={n: c["verdict"]["passed"]
+                          for n, c in doc["campaigns"].items()},
+                chunks=sum(len(c["chunks"]) for c in doc["campaigns"].values()),
+                seconds=time.perf_counter() - t0)
+
+
+def serve_full_width(dev):
+    """The crash and verifier-crash campaigns with their model at the
+    serving geometry (100,000 peers), on the card, with the real clock;
+    the crash campaign traced (``trace_out=``).  Each must pass with
+    nothing lost, duplicated or silently dropped, prepare nothing new and
+    launch K1 = topics x rounds, K2 = topics x heartbeats and no E1; the
+    traced run must close every sampled span and annotate the reopened
+    ones with the crash gap."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from go_libp2p_pubsub_torch import scenario
+    from go_libp2p_pubsub_torch.ops import cuda_ed25519, cuda_gossip
+    from go_libp2p_pubsub_torch.serve import engine as E
+    from go_libp2p_pubsub_torch.serve import stream_trace as S
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="serve-trace-")
+    try:
+        for name in (SERVE_CRASH, SERVE_VERIFIER):
+            spec = dataclasses.replace(scenario.build(name),
+                                       model=dict(S.CONFIG))
+            trace = os.path.join(tmp, "crash.json") if name == SERVE_CRASH \
+                else None
+            programs0 = set(E._PROGRAMS)
+            cuda_gossip.reset_launches()
+            cuda_ed25519.reset_launches()
+            t0 = time.perf_counter()
+            with _DispatchCounter() as seen:
+                res = scenario.run_streaming_scenario(spec, device=dev,
+                                                      trace_out=trace)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            new = [geom for _, geom in set(E._PROGRAMS) - programs0]
+            t = S.CONFIG["n_topics"]
+            launches = {"gossip_propagate": cuda_gossip.propagate.launches,
+                        "gossip_exchange": cuda_gossip.exchange_select.launches,
+                        "ed25519_verify": cuda_ed25519.verify.launches}
+            want = {"gossip_propagate": t * seen.rounds,
+                    "gossip_exchange": t * seen.beats, "ed25519_verify": 0}
+            rec, st = res.record, res.engine_stats
+            lost = int(rec["lost_after_restart"][0])
+            dups = int(rec["duplicate_deliveries"][0])
+            silent = int(rec["silent_drops"][0])
+            if not res.verdict.passed:
+                fail(f"{name} at {S.CONFIG['n_peers']} peers: "
+                     f"{res.verdict.to_dict()}")
+            if lost or dups or silent:
+                fail(f"{name} at full width: lost {lost}, duplicates {dups}, "
+                     f"silent drops {silent}")
+            if launches != want or seen.beats < seen.chunk_beats:
+                fail(f"{name} at full width launched {launches}, "
+                     f"expected {want} ({seen.chunk_beats} chunk "
+                     f"heartbeats of {seen.beats})")
+            geom = (res.plan.chunk_steps, res.plan.pub_width)
+            if any(g != geom for g in new) or len(new) > 1:
+                fail(f"{name} at full width prepared programs {new} "
+                     f"(its geometry is {geom})")
+            r = dict(verdict=res.verdict.passed, wall_s=wall,
+                     runner_seconds=res.seconds,
+                     recovery_s=float(rec["recovery_s"][0]),
+                     ingest_p50_s=float(rec["ingest_lat_p50_s"][0]),
+                     ingest_p99_s=float(rec["ingest_lat_p99_s"][0]),
+                     completed=st["completed"], published=res.n_publishes,
+                     admitted_valid=st["admitted_valid"], lost=lost,
+                     duplicates=dups, silent_drops=silent,
+                     restores=st["restores"],
+                     pipeline_restarts=st["pipeline_restarts"],
+                     replay_deduped=st["replay_deduped"],
+                     dispatches=seen.dispatches, rounds=seen.rounds,
+                     heartbeats=seen.beats, chunk_heartbeats=seen.chunk_beats,
+                     launches=launches, prepared_programs=len(new),
+                     programs_of_the_model=st["compile_cache_size"])
+            if name == SERVE_CRASH:
+                if st["restores"] != 1:
+                    fail(f"{name}: {st['restores']} restores, not 1")
+                with open(trace) as f:
+                    art = json.load(f)
+                summ = art["summary"]
+                reopened = [sp for sp in art["spans"] if any(
+                    e["name"] == "crash_recovery" for e in sp["events"])]
+                if summ["open"] or not summ["spans"]:
+                    fail(f"{name}: {summ['open']} of {summ['spans']} "
+                         "sampled spans left open")
+                if not reopened or not all(sp["closed"] for sp in reopened):
+                    fail(f"{name}: no span carries the crash gap")
+                r.update(spans=summ["spans"], spans_open=summ["open"],
+                         spans_reopened=len(reopened),
+                         recovery_gap_s=art["recovery_gap_s"])
+            elif st["pipeline_restarts"] != 1:
+                fail(f"{name}: {st['pipeline_restarts']} pipeline restarts")
+            out[name] = r
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def serve_small_crash(dev):
+    """The crash campaign at 2,000 peers on the card and on the CPU under
+    the stepping clock: every deterministic channel, chunk for chunk, and
+    every end-state leaf equal."""
+    import dataclasses
+
+    from go_libp2p_pubsub_torch import scenario
+    from go_libp2p_pubsub_torch.scenario import stream_canon, streaming_runner
+    from go_libp2p_pubsub_torch.serve import StreamingEngine
+    from go_libp2p_pubsub_torch.serve import stream_trace as S
+
+    t0 = time.perf_counter()
+    spec = dataclasses.replace(scenario.build(SERVE_CRASH),
+                               model=dict(S.CONFIG, n_peers=SERVE_SMALL_N))
+    runs = [stream_canon.capture(streaming_runner, StreamingEngine, spec,
+                                 device=device) for device in (dev, "cpu")]
+    (doc, eng), (cdoc, ceng) = runs
+    diff = stream_canon.mismatches(doc, cdoc)
+    if diff or doc != cdoc:
+        fail(f"{SERVE_CRASH} at {SERVE_SMALL_N} peers: card and CPU "
+             f"differ: {diff}")
+    leaves = _same_states(eng.state, ceng.state,
+                          f"{SERVE_CRASH} at {SERVE_SMALL_N} peers")
+    return dict(n_peers=SERVE_SMALL_N, verdict=doc["verdict"]["passed"],
+                chunks=len(doc["chunks"]), leaves_equal=leaves,
+                seconds=time.perf_counter() - t0)
+
+
+def serve_degraded(dev):
+    """The serving bench's ``degraded`` section (``bench.py``): its own
+    64-peer model, a ``reject`` ring of 32 and a watchdog at 24/8
+    watermarks under an offered load of 24 a chunk against a drain of 8,
+    then silence.  The tiers must reach shed_priority and drop_oldest and
+    end at normal, with 0 silent drops."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_torch.models.multitopic import MultiTopicGossipSub
+    from go_libp2p_pubsub_torch.serve import (IngestRing, StreamingEngine,
+                                              Watchdog)
+
+    rng = np.random.default_rng(0)
+    model = MultiTopicGossipSub(device=dev, n_topics=2, n_peers=64, n_slots=8,
+                                conn_degree=4, msg_window=64,
+                                heartbeat_steps=4)
+    ring = IngestRing(capacity=32, policy="reject")
+    eng = StreamingEngine(model, ring, chunk_steps=4, pub_width=2,
+                          completion_frac=0.99, seed=0)
+    eng.warmup()
+    wd = Watchdog(eng, ring, chunk_stall_s=3600.0, high_watermark=24,
+                  low_watermark=8, topic_priority=[0, 1])
+    tiers = [wd.tier_name]
+    t0 = time.perf_counter()
+    seq = 0
+    for step in range(10):
+        if step < 5:
+            for i in range(24):
+                ring.push(topic=i % 2, payload=b"degraded %d" % seq,
+                          publisher=int(rng.integers(64)), valid=True)
+                seq += 1
+        eng.run_chunk()
+        wd.note_chunk()
+        wd.poll()
+        if wd.tier_name != tiers[-1]:
+            tiers.append(wd.tier_name)
+    eng.run_until_drained(max_chunks=32)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    acct = ring.accounting()
+    if "shed_priority" not in tiers or "drop_oldest" not in tiers \
+            or tiers[-1] != "normal":
+        fail(f"degraded: the ladder went {tiers}")
+    if acct["silent_drops"]:
+        fail(f"degraded: {acct['silent_drops']} silent drops")
+    return dict(tiers_seen=tiers, shed_priority=acct["shed_priority"],
+                dropped_oldest=acct["dropped_oldest"],
+                rejected_pushes=acct["rejected"],
+                silent_drops=acct["silent_drops"], offered=seq,
+                completed=eng.completed,
+                degraded_msgs_per_sec=eng.completed * 64.0 / elapsed,
+                elapsed_s=elapsed, tier_log=[list(x) for x in wd.tier_log])
+
+
+OBS_REPS, OBS_MSGS = 3, 64
+
+
+def serve_obs(dev, model):
+    """The serving bench's ``obs`` A/B on the phase's 100k model: fresh
+    ring and engine pairs, traced (``MetricsRegistry``,
+    ``SpanLedger(sample_n=1)``, ``BlackBox(64)``) and untraced, alternate,
+    three repeats each, over the same signed constant workload.  Both arms
+    must complete every message, every span must close, the span-exact
+    p50 must not exceed the chunk-quantized p50, and no program may be
+    prepared; the overhead (best of the repeats) is reported against the
+    reference's 2% budget, not enforced."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_torch.crypto.pipeline import (ValidationPipeline,
+                                                        sign_envelope)
+    from go_libp2p_pubsub_torch.obs import BlackBox, SpanLedger
+    from go_libp2p_pubsub_torch.serve import IngestRing, StreamingEngine
+    from go_libp2p_pubsub_torch.serve import stream_trace as S
+    from go_libp2p_pubsub_torch.utils.metrics import MetricsRegistry
+
+    from go_libp2p_pubsub_torch.serve import engine as E
+
+    p = S.ENGINE["pub_width"]
+    programs0 = set(E._PROGRAMS)
+
+    def arm(traced, seed):
+        reg = MetricsRegistry() if traced else None
+        led = SpanLedger(sample_n=1) if traced else None
+        box = BlackBox(capacity=64) if traced else None
+        ring = IngestRing(capacity=S.CAPACITY, policy="block", metrics=reg,
+                          tracer=led)
+        eng = StreamingEngine(model, ring, seed=seed, metrics=reg,
+                              tracer=led, blackbox=box, **S.ENGINE)
+        eng.warmup()
+        pipe = ValidationPipeline(
+            backend="native", flush_threshold=1 << 20, tracer=led,
+            metrics=reg, on_verdict_ctx=lambda env, ok, ctx: ring.push(
+                topic=ctx[0], payload=env.payload, publisher=ctx[1],
+                valid=ok, timeout=30.0))
+        rng = np.random.default_rng(7)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i0 in range(0, OBS_MSGS, p):
+            for i in range(i0, min(i0 + p, OBS_MSGS)):
+                env = sign_envelope(rng.bytes(32), f"topic-{i % 2}", i,
+                                    b"obs payload %d" % i, backend="native")
+                pipe.submit(env, ctx=(i % 2, int(rng.integers(model.n))))
+            pipe.flush()
+            eng.run_chunk()
+        eng.run_until_drained(max_chunks=64)
+        elapsed = time.perf_counter() - t0
+        return eng, led, eng.completed * float(model.n) / elapsed
+
+    t0 = time.perf_counter()
+    traced, untraced, completed = [], [], []
+    eng = led = None
+    for rep in range(OBS_REPS):
+        e0, _, r0 = arm(False, seed=100 + rep)
+        eng, led, r1 = arm(True, seed=200 + rep)
+        untraced.append(r0)
+        traced.append(r1)
+        completed.append([e0.completed, eng.completed])
+        del e0
+    if any(a != b or a != OBS_MSGS for a, b in completed):
+        fail(f"obs A/B: completions per (untraced, traced) arm {completed}")
+    summ = led.summary()
+    q_chunk = eng.latency_quantiles(mode="chunk")
+    q_exact = eng.latency_quantiles(mode="exact")
+    if summ["open"] or summ["spans"] != OBS_MSGS:
+        fail(f"obs A/B: {summ['open']} of {summ['spans']} spans open")
+    if not q_exact["p50"] <= q_chunk["p50"] + 1e-9:
+        fail(f"obs A/B: span-exact p50 {q_exact['p50']} above the "
+             f"chunk-quantized {q_chunk['p50']}")
+    if set(E._PROGRAMS) != programs0:
+        fail("obs A/B: the arms prepared a program")
+    best_plain, best_traced = max(untraced), max(traced)
+    overhead = max(0.0, 1.0 - best_traced / best_plain)
+    return dict(reps=OBS_REPS, msgs_per_rep=OBS_MSGS, sample_n=1,
+                untraced_msgs_per_sec=untraced,
+                traced_msgs_per_sec=traced,
+                best_untraced_msgs_per_sec=best_plain,
+                best_traced_msgs_per_sec=best_traced,
+                overhead_frac=overhead, budget_frac=0.02,
+                within_budget=overhead <= 0.02, completed=completed,
+                spans=summ["spans"], spans_open=summ["open"],
+                chunk_p50_s=q_chunk["p50"], chunk_p99_s=q_chunk["p99"],
+                span_p50_s=q_exact["p50"], span_p99_s=q_exact["p99"],
+                programs_of_the_model=eng.compile_cache_size(),
+                seconds=time.perf_counter() - t0)
+
+
 def serve_phase(dev, card: str):
-    """Phase 7.  Returns the kernels' launches in the timed serve run."""
+    """Phase 7.  Returns the kernels' launches in the timed serve run and
+    in the two streaming campaigns at full width."""
     import torch
 
     from go_libp2p_pubsub_torch import scenario
@@ -1329,6 +1690,20 @@ def serve_phase(dev, card: str):
     timed, launches, (model, eng) = serve_timed(dev, card)
     sync_per_chunk = serve_sync_debug(model, eng)
     faulted = serve_faulted(dev, model)
+
+    # The control and fault layers: the streaming canon against its JAX
+    # trace, the crash campaigns at full width, card = CPU, the degraded
+    # ladder and the tracing A/B.
+    control = {}
+    for key, section in (("canon_replay", lambda: serve_canon_replay(dev)),
+                         ("full_width", lambda: serve_full_width(dev)),
+                         ("small_crash", lambda: serve_small_crash(dev)),
+                         ("degraded", lambda: serve_degraded(dev)),
+                         ("obs", lambda: serve_obs(dev, model))):
+        t2 = time.perf_counter()
+        control[key] = section()
+        control[key]["section_s"] = time.perf_counter() - t2
+        print(f"serve {key}: {control[key]['section_s']:.1f} s", flush=True)
     emit(dict(
         phase="serve", n_peers=model.n, n_topics=model.t,
         small_n_peers=SERVE_SMALL_N, small_values_compared=compared,
@@ -1336,8 +1711,11 @@ def serve_phase(dev, card: str):
         trace_chunks=sum(len(w["chunks"]) for w in doc["workloads"].values()),
         trace_mismatches=0, replay_s=replay_s,
         sync_debug_warnings_per_chunk=sync_per_chunk,
-        faulted=faulted, **timed))
-    return launches
+        faulted=faulted, **timed, **control))
+    streaming = {k: sum(control["full_width"][name]["launches"][k]
+                        for name in (SERVE_CRASH, SERVE_VERIFIER))
+                 for k in launches}
+    return launches, streaming
 
 
 def main() -> None:
@@ -1373,11 +1751,12 @@ def main() -> None:
     records.append(check_ed25519(dev, e1_ptxas, imads, card))
     launches = main_path(dev, card)
     scenario_launches = scenario_phase(dev, card)
-    serve_launches = serve_phase(dev, card)
+    serve_launches, streaming_launches = serve_phase(dev, card)
     for r in records:
         r["launches"] = launches[r["name"]]
         r["launches_scenario"] = scenario_launches[r["name"]]
         r["launches_serve"] = serve_launches[r["name"]]
+        r["launches_streaming"] = streaming_launches[r["name"]]
         emit(dict(phase="kernel", **r))
     emit({"kernels": records})
     print(card, flush=True)

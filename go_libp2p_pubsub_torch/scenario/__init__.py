@@ -3,17 +3,26 @@ the card.
 
 - :mod:`.spec` -- the declarative layer (:class:`ScenarioSpec` + JSON);
 - :mod:`.compiler` -- lowering to ``ops.schedule`` event rows
-  (``gossipsub`` and ``multitopic`` families);
+  (``gossipsub`` and ``multitopic`` families), and the serving plane's
+  publish timeline (``compile_streaming_plan``);
 - :mod:`.runner` -- execution, traces, bit-for-bit replay;
+- :mod:`.streaming_runner` -- campaigns as open streams through the
+  ingest ring into the resident engine, with the watchdog, the
+  controller and the staged faults;
 - :mod:`.slo` -- verdicts graded from the flight record;
 - :mod:`.canon` -- the named, committed campaign suite;
 - :mod:`.defense`, :mod:`.realism` -- defense configs, network texture.
 
-The live and streaming runners of the JAX package are not ported yet.
+The live runner of the JAX package is not ported yet.
 """
 
 from .canon import CANON, build, build_all
-from .compiler import CompiledScenario, compile_scenario
+from .compiler import (
+    CompiledScenario,
+    StreamingPlan,
+    compile_scenario,
+    compile_streaming_plan,
+)
 from .defense import (
     HARDENED_DEFENSE,
     PROMOTED_DEFENSE,
@@ -37,6 +46,12 @@ from .runner import (
     trace_document,
 )
 from .slo import Criterion, Verdict, evaluate
+from .streaming_runner import (
+    StreamingPlaneError,
+    StreamingScenarioResult,
+    run_streaming_scenario,
+    streaming_supported,
+)
 from .spec import (
     SLO,
     AttackWave,
@@ -67,6 +82,9 @@ __all__ = [
     "STANDING_DEFENSE",
     "ScenarioResult",
     "ScenarioSpec",
+    "StreamingPlan",
+    "StreamingPlaneError",
+    "StreamingScenarioResult",
     "Verdict",
     "Workload",
     "apply_realism",
@@ -74,6 +92,7 @@ __all__ = [
     "build_all",
     "check_invariants",
     "compile_scenario",
+    "compile_streaming_plan",
     "defense_digest",
     "diurnal_churn",
     "evaluate",
@@ -81,9 +100,11 @@ __all__ = [
     "heavy_tailed_builder",
     "replay_trace",
     "run_scenario",
+    "run_streaming_scenario",
     "run_suite",
     "save_trace",
     "sim_supported",
+    "streaming_supported",
     "topology_builder",
     "trace_document",
 ]

@@ -19,9 +19,11 @@ mesh and counter rewrite, the eclipse attacker draw) reads the state back
 to numpy exactly as the reference does, and puts it back on the model's
 device in the state's storage dtypes.
 
-The other families (``treecast``, ``rlnc``, ``hybrid``) are not ported
-yet and raise ``NotImplementedError`` naming their ROADMAP item, as does
-``compile_streaming_plan``.
+``compile_streaming_plan`` lowers a ``multitopic`` spec for the serving
+plane (a host publish timeline, the fault stages and the controller
+ladder), as the reference does.  The other families (``treecast``,
+``rlnc``, ``hybrid``) are not ported yet and raise ``NotImplementedError``
+naming their ROADMAP item, on both planes.
 """
 
 from __future__ import annotations
@@ -142,13 +144,6 @@ def compile_scenario(spec: ScenarioSpec, device="cuda") -> CompiledScenario:
     """Lower ``spec`` -> (model on ``device``, initialized state, events)."""
     _check_family(spec)
     return _compile_gossip_like(spec, device)
-
-
-def compile_streaming_plan(spec: ScenarioSpec):
-    """The streaming plane's lowering is not ported yet."""
-    raise NotImplementedError(
-        "compile_streaming_plan is not ported yet: ROADMAP A7b (streaming "
-        "runner, controller and fault lowering)")
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -523,3 +518,325 @@ def _compile_gossip_like(spec: ScenarioSpec, device) -> CompiledScenario:
         attackers=attackers if attackers.any() else None,
         target=target, n_publishes=n_publishes,
     )
+
+
+# ---------------------------------------------------------------------------
+# streaming lowering (serving plane)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StreamingPlan:
+    """A spec lowered for the serving plane: a host publish TIMELINE, not
+    device event tensors.  The streaming runner replays ``timeline`` through
+    the ingest ring into a resident :class:`~..serve.engine.StreamingEngine`;
+    the device-side shapes are fixed by (chunk_steps, pub_width), never by
+    the campaign length, which is what lets the stream be unbounded."""
+
+    spec: ScenarioSpec
+    timeline: List[List[tuple]]   # per step: [(topic, src, valid), ...]
+    n_publishes: int
+    chunk_steps: int
+    capacity: int
+    policy: str
+    pub_width: int
+    completion_frac: float
+    # Chaos lowering (r14): validated fault stages for the runner to
+    # inject at chunk boundaries, and the engine's snapshot period.
+    faults: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    snapshot_every: int = 0
+    # r16: hybrid plane — run an eager-forced twin over the same timeline
+    # and report the p99 ingest->delivery ratio as a channel.
+    compare_eager: bool = False
+    # r20: self-tuning — normalized {"ladder": [(steps, width), ...],
+    # "policy": {ControllerPolicy overrides}} when the spec asks for a
+    # controller, and the self-tuned-vs-best-static A/B flag (one static
+    # twin per ladder rung over the same timeline).
+    controller: Optional[Dict[str, Any]] = None
+    compare_static: bool = False
+
+
+def compile_streaming_plan(spec: ScenarioSpec) -> StreamingPlan:
+    """Lower ``spec`` for the streaming plane.
+
+    Honest support matrix: only the ``multitopic`` and ``hybrid`` families
+    have a resident engine (the port runs ``multitopic``; ``hybrid``
+    raises ``NotImplementedError`` naming its ROADMAP item), and the
+    serving plane lowers WORKLOADS only —
+    churn, attack and link windows mutate device event tensors mid-scan,
+    which the fixed-shape resident chunk deliberately does not carry
+    (publishes and, on the hybrid plane, the per-chunk ingress-loss stamp
+    are the only per-chunk variables).  Requesting them raises rather than
+    silently ignoring campaign components.
+    """
+    if spec.family not in ("multitopic", "hybrid"):
+        raise ValueError(
+            f"streaming plane requires the multitopic or hybrid family, "
+            f"got {spec.family!r}"
+        )
+    if spec.family == "hybrid":
+        raise NotImplementedError(
+            f"the hybrid streaming plane is not ported yet: "
+            f"{_NOT_PORTED['hybrid']}"
+        )
+    if spec.churn or spec.attacks or spec.links or spec.faults:
+        raise ValueError(
+            "churn/attack/link/fault components are not lowered for the "
+            "streaming plane (publishes are the only per-chunk variable)"
+        )
+    T = spec.n_steps
+    n = int(spec.model.get("n_peers", 1024))
+    # The hybrid is a single-topic plane (T = 1): workload topics clip to 0.
+    n_topics = (
+        1 if spec.family == "hybrid"
+        else int(spec.model.get("n_topics", 4))
+    )
+    cfg = dict(spec.streaming or {})
+    chunk_steps = int(cfg.get("chunk_steps", 8))
+    capacity = int(cfg.get("capacity", 64))
+    policy = str(cfg.get("policy", "block"))
+    # Default pub_width lets ONE chunk drain a full ring: ceil(cap / steps).
+    pub_width = int(cfg.get("pub_width", max(1, -(-capacity // chunk_steps))))
+    completion_frac = float(cfg.get("completion_frac", 0.99))
+    faults = _lower_streaming_faults(cfg, T, chunk_steps)
+    controller = _lower_controller(cfg, chunk_steps, pub_width)
+    compare_static = bool(cfg.get("compare_static", False))
+    if compare_static and controller is None:
+        raise ValueError(
+            "compare_static needs a \"controller\" dict (the static twins "
+            "are the ladder's rungs — nothing to compare without a ladder)"
+        )
+    compare_eager = bool(cfg.get("compare_eager", False))
+    if (
+        compare_eager or "loss" in faults or "loss_oscillate" in faults
+    ) and spec.family != "hybrid":
+        raise ValueError(
+            "loss windows / compare_eager are hybrid-family features "
+            "(only the hybrid model stamps per-chunk ingress loss)"
+        )
+    # A staged crash needs a snapshot to come back from; default to
+    # every-chunk snapshots so the boundary crash loses nothing.
+    snapshot_every = int(
+        cfg.get("snapshot_every", 1 if "crash_at_chunk" in faults else 0)
+    )
+    if snapshot_every < 0:
+        raise ValueError("snapshot_every must be >= 0")
+    if "crash_at_chunk" in faults and snapshot_every == 0:
+        raise ValueError(
+            "crash_at_chunk needs snapshot_every >= 1 (nothing to restore "
+            "from otherwise)"
+        )
+
+    timeline: List[List[tuple]] = [[] for _ in range(T)]
+    for wi, w in enumerate(spec.workloads):
+        start, stop = _window(w.start, w.stop, T)
+        rng = _rng(spec.seed, _TAG_WORKLOAD, wi)
+        if not (0 <= w.topic < n_topics):
+            raise ValueError(f"topic {w.topic} out of range [0, {n_topics})")
+        steps = [start] if w.kind == "burst" else range(start, stop, w.every)
+        for t in steps:
+            for _ in range(w.n_msgs):
+                # No churn on this plane, so every peer is alive: publishers
+                # draw uniformly (same per-workload substream discipline as
+                # the sim compiler, so seeds reproduce bit-for-bit).
+                src = int(rng.integers(n)) if w.src is None else w.src
+                if not (0 <= src < n):
+                    raise ValueError(f"publisher {src} out of range [0, {n})")
+                timeline[t].append((w.topic, src, bool(w.valid)))
+
+    if "producer_stall" in faults:
+        # Stall-then-flood: the producer is wedged through the window, and
+        # everything it would have published lands in one step at wake-up.
+        stall = faults["producer_stall"]
+        wake = stall["start"] + stall["steps"]
+        deferred: List[tuple] = []
+        for t in range(stall["start"], wake):
+            deferred.extend(timeline[t])
+            timeline[t] = []
+        timeline[wake] = deferred + timeline[wake]
+
+    return StreamingPlan(
+        spec=spec,
+        timeline=timeline,
+        n_publishes=sum(len(r) for r in timeline),
+        chunk_steps=chunk_steps,
+        capacity=capacity,
+        policy=policy,
+        pub_width=pub_width,
+        completion_frac=completion_frac,
+        faults=faults,
+        snapshot_every=snapshot_every,
+        compare_eager=compare_eager,
+        controller=controller,
+        compare_static=compare_static,
+    )
+
+
+def _lower_controller(
+    cfg: Dict[str, Any], chunk_steps: int, pub_width: int
+) -> Optional[Dict[str, Any]]:
+    """Validate the streaming dict's ``controller`` key: the geometry
+    ladder must contain the spec's base geometry (the pre-warm contract),
+    and policy overrides must name real :class:`ControllerPolicy` fields
+    with values its validation accepts — both checked at compile time, so
+    a bad spec fails before any engine warms."""
+    if cfg.get("controller") is None:
+        return None
+    from ..serve.tuning import ControllerPolicy, validate_ladder
+
+    ctl = dict(cfg["controller"])
+    unknown = set(ctl) - {"ladder", "policy"}
+    if unknown:
+        raise ValueError(
+            f"unknown controller keys {sorted(unknown)} "
+            "(expected \"ladder\" and optional \"policy\")"
+        )
+    ladder_cfg = ctl.get("ladder")
+    if not ladder_cfg:
+        raise ValueError("controller needs a non-empty \"ladder\"")
+    rungs = validate_ladder(
+        [tuple(int(x) for x in g) for g in ladder_cfg],
+        (chunk_steps, pub_width),
+    )
+    overrides = dict(ctl.get("policy") or {})
+    try:
+        ControllerPolicy(**overrides)
+    except TypeError as e:
+        raise ValueError(f"bad controller policy override: {e}") from None
+    return {
+        "ladder": [r.as_tuple() for r in rungs],
+        "policy": overrides,
+    }
+
+
+def _lower_streaming_faults(
+    cfg: Dict[str, Any], n_steps: int, chunk_steps: int
+) -> Dict[str, Any]:
+    """Validate the streaming dict's fault keys into StreamingPlan.faults.
+
+    Chunk-indexed faults fire after that many TRAFFIC chunks (1-based, so
+    ``crash_at_chunk=1`` kills the engine right after its first loaded
+    chunk); they must land inside the campaign's chunk count.  Unknown
+    behavior is rejected loudly, matching the sim compiler's posture."""
+    n_chunks = -(-n_steps // chunk_steps)
+    faults: Dict[str, Any] = {}
+    for key in ("crash_at_chunk", "verifier_crash_at_chunk"):
+        if cfg.get(key) is not None:
+            at = int(cfg[key])
+            if not (1 <= at <= n_chunks):
+                raise ValueError(
+                    f"{key}={at} outside the campaign's chunk range "
+                    f"[1, {n_chunks}]"
+                )
+            faults[key] = at
+    if cfg.get("producer_stall") is not None:
+        st = dict(cfg["producer_stall"])
+        start, steps = int(st.get("start", 0)), int(st.get("steps", 0))
+        if steps < 1 or start < 0:
+            raise ValueError("producer_stall needs start >= 0, steps >= 1")
+        if start + steps >= n_steps:
+            raise ValueError(
+                f"producer_stall window [{start}, {start + steps}) must end "
+                f"before the campaign's last step ({n_steps - 1}) so the "
+                "deferred flood still publishes"
+            )
+        faults["producer_stall"] = {"start": start, "steps": steps}
+    if cfg.get("clock_skew") is not None:
+        sk = dict(cfg["clock_skew"])
+        at = int(sk.get("at_chunk", 1))
+        if not (1 <= at <= n_chunks):
+            raise ValueError(
+                f"clock_skew.at_chunk={at} outside the campaign's chunk "
+                f"range [1, {n_chunks}]"
+            )
+        faults["clock_skew"] = {
+            "at_chunk": at, "skew_s": float(sk.get("skew_s", 0.0)),
+        }
+    if cfg.get("loss") is not None:
+        # Degraded-link window (r16, hybrid plane): chunks in
+        # [start_chunk, stop_chunk) ingest with per-receiver decimation
+        # ``delay`` stamped on the event tensors; the stamp resets to 0 at
+        # stop_chunk so the drain (and any eager twin) runs on clean fabric.
+        lw = dict(cfg["loss"])
+        start = int(lw.get("start_chunk", 0))
+        stop = int(lw.get("stop_chunk", n_chunks))
+        delay = int(lw.get("delay", 1))
+        if delay < 1:
+            raise ValueError("loss.delay must be >= 1 (decimation period)")
+        if not (0 <= start < stop <= n_chunks):
+            raise ValueError(
+                f"loss window [{start}, {stop}) outside the campaign's "
+                f"chunk range [0, {n_chunks}]"
+            )
+        faults["loss"] = {
+            "start_chunk": start, "stop_chunk": stop, "delay": delay,
+        }
+    if cfg.get("loss_oscillate") is not None:
+        # r21 hysteresis-oscillation attack (hybrid plane): the adversary
+        # flips the link between lossy (decimation ``delay``) and clean
+        # every ``period_chunks`` chunks inside [start_chunk, stop_chunk),
+        # starting lossy.  Tuned to straddle the hybrid's switch_hi /
+        # switch_lo band, it tries to force worst-of-both behavior out of
+        # the eager<->coded estimator (each flip lands just as the EWMA
+        # crosses a threshold).
+        ow = dict(cfg["loss_oscillate"])
+        start = int(ow.get("start_chunk", 0))
+        stop = int(ow.get("stop_chunk", n_chunks))
+        period = int(ow.get("period_chunks", 1))
+        delay = int(ow.get("delay", 1))
+        if delay < 1:
+            raise ValueError(
+                "loss_oscillate.delay must be >= 1 (decimation period)"
+            )
+        if period < 1:
+            raise ValueError("loss_oscillate.period_chunks must be >= 1")
+        if not (0 <= start < stop <= n_chunks):
+            raise ValueError(
+                f"loss_oscillate window [{start}, {stop}) outside the "
+                f"campaign's chunk range [0, {n_chunks}]"
+            )
+        if "loss" in faults:
+            raise ValueError(
+                "\"loss\" and \"loss_oscillate\" stamp the same ingress-"
+                "delay lever — use one or the other"
+            )
+        faults["loss_oscillate"] = {
+            "start_chunk": start, "stop_chunk": stop,
+            "period_chunks": period, "delay": delay,
+        }
+    if cfg.get("loss_regimes") is not None:
+        # r20 drifting-workload windows: STEP-keyed (not chunk-keyed) so
+        # the same spec is fair across chunk geometries — a controller
+        # switching rungs and a static twin see the loss start and stop at
+        # the same timeline steps.  Windows must be ordered and disjoint.
+        regimes: List[Dict[str, int]] = []
+        for i, rw in enumerate(cfg["loss_regimes"]):
+            rw = dict(rw)
+            start = int(rw.get("start_step", 0))
+            stop = int(rw.get("stop_step", n_steps))
+            delay = int(rw.get("delay", 1))
+            if delay < 1:
+                raise ValueError(
+                    f"loss_regimes[{i}].delay must be >= 1"
+                )
+            if not (0 <= start < stop <= n_steps):
+                raise ValueError(
+                    f"loss_regimes[{i}] window [{start}, {stop}) outside "
+                    f"the campaign's step range [0, {n_steps}]"
+                )
+            if regimes and start < regimes[-1]["stop_step"]:
+                raise ValueError(
+                    f"loss_regimes[{i}] starts at step {start}, inside the "
+                    f"previous window (ends {regimes[-1]['stop_step']}) — "
+                    "windows must be ordered and disjoint"
+                )
+            regimes.append(
+                {"start_step": start, "stop_step": stop, "delay": delay}
+            )
+        if "loss" in faults or "loss_oscillate" in faults:
+            raise ValueError(
+                "\"loss\"/\"loss_oscillate\" (chunk-keyed) and "
+                "\"loss_regimes\" (step-keyed) stamp the same ingress-"
+                "delay lever — use one or the other"
+            )
+        faults["loss_regimes"] = regimes
+    return faults

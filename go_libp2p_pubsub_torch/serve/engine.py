@@ -35,8 +35,9 @@ the content-hash dedup makes delivery exactly-once across a crash.  A
 snapshot written by the JAX package's engine restores here, and the other
 way round.
 
-``tracer`` and ``blackbox`` are optional duck-typed hooks (the span ledger
-and black box are not ported); the engine is exact with both None.
+``tracer`` (an ``obs.spans.SpanLedger``) and ``blackbox`` (an
+``obs.blackbox.BlackBox``) are optional hooks; the engine is exact with
+both None.
 ``profile_every``/``profile_dir`` capture a ``torch.profiler`` trace of
 every Nth chunk into ``profile_dir``.
 """

@@ -216,8 +216,16 @@ def test_port_imports_with_jax_blocked():
         "from go_libp2p_pubsub_torch.serve import stream_trace\n"
         "assert stream_trace.load_trace()['config']['n_peers'] > 0\n"
         "for m in ('models.multitopic', 'serve.engine', 'serve.ingest',\n"
-        "          'serve.tuning', 'utils.checkpoint', 'obs.export'):\n"
+        "          'serve.tuning', 'utils.checkpoint', 'obs.export',\n"
+        "          'serve.watchdog', 'serve.controller', 'obs.blackbox',\n"
+        "          'obs.spans', 'scenario.compiler',\n"
+        "          'scenario.streaming_runner', 'scenario.stream_canon'):\n"
         "    assert p.__name__ + '.' + m in names, m\n"
+        "from go_libp2p_pubsub_torch.serve import Controller, Watchdog\n"
+        "from go_libp2p_pubsub_torch.obs import BlackBox, SpanLedger\n"
+        "from go_libp2p_pubsub_torch.scenario import (\n"
+        "    compile_streaming_plan, run_streaming_scenario, stream_canon)\n"
+        "assert len(stream_canon.load_trace()['campaigns']) == 4\n"
         "assert defense.load_promoted() == defense.PROMOTED_DEFENSE\n"
         "assert 'go_libp2p_pubsub_tpu' not in sys.modules\n"
         "print(len(names))\n"

@@ -181,8 +181,8 @@ def test_unported_families_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         tscn.compile_scenario(hybrid, device="cpu")
     from go_libp2p_pubsub_torch.scenario.compiler import compile_streaming_plan
-    with pytest.raises(NotImplementedError, match="ROADMAP A7b"):
-        compile_streaming_plan(tscn.build("streaming_steady"))
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        compile_streaming_plan(tscn.build("streaming_degraded_links"))
 
 
 def test_per_edge_delay_rejects_eclipse_silence():
