@@ -99,7 +99,38 @@ Phases (each one fails the run, exit code != 0, on any error):
               normal, 0 silent drops); and its ``obs`` A/B on the 100k
               model (traced and untraced arms alternating, three repeats,
               equal completions, every span closed, no program prepared;
-              the overhead is printed against the 2% budget).
+              the overhead is printed against the 2% budget);
+8. tree     -- the tree plane and the rest of the router family: the
+              100,000-peer ``TreeCast`` (``bench.py``'s ``bench_treecast``
+              configuration scaled up, width 2 / max width 5) joins all
+              at once, drains 64 root publishes in a timed
+              ``rollout(record=True)`` and heals after 1% kills and 1%
+              graceful leaves with 32 more publishes in a second one,
+              against the trace the JAX package wrote
+              (``models/traces/tree_100000.trace.json``, 0 mismatches:
+              every step's ``tree_metrics`` and every leaf's digest at
+              each phase's end), with 0 syncs inside the timed rollouts
+              (counted under the sync-debug mode), device operations a
+              step (profiler) and each step phase's device time (CUDA
+              events); ``bench_treecast`` itself (10 peers, 64 messages,
+              the delivered count asserted); the reference's integration
+              contracts, two topics and a lossy link profile through
+              ``SimNetwork`` on the card and on the CPU (equal bytes,
+              message for message); at 2,000 peers card = CPU, leaf for
+              leaf, for a tree under a ``FaultPlan`` through
+              ``run_with_faults``, the canon's ``tree_churn_heal``
+              widened (PASS on both) and FloodSub / RandomSub (default
+              emit and emit 6: 32 slots, degree 16, 128 publishes, 24
+              rounds, 1% killed at round 8); the same three at 100,000
+              peers (delivery no lower than at 2,000 minus 0.01,
+              rounds/s, peak memory); and ``GossipSub(direct_edges=)``
+              over 1% of the wired edge pairs: at 2,000 peers card = CPU
+              with one round's K1 and one heartbeat's K2 inputs held
+              against the plain versions bit for bit, and at 100,000
+              peers main-path style (128 publishes, 4 forged, a timed
+              ``rollout(24, record=True)``: K1 24 and K2 3 launches,
+              forged spread <= 1, every direct edge's receiver within one
+              round of its sender, no direct edge in the mesh).
 
 The last line is ``{"ok": true, "device": {...}}``; nothing else is
 printed after a failure.
@@ -928,6 +959,25 @@ def _same_result(a, b, what: str) -> int:
     return n
 
 
+def _sync_warnings(fn) -> int:
+    """Operations of ``fn()`` that synchronise the host with the card
+    (``torch.cuda.set_sync_debug_mode("warn")``); waiting on an event, as
+    a record's read does, is not one."""
+    import warnings
+
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
 def _edge_delay_campaign(device, n_peers: int):
     """The composite with per-edge delay: ``max_edge_delay=2``, a seeded
     random 0-2 plane on the compiled state, and no eclipse wave (its
@@ -954,8 +1004,6 @@ def _edge_delay_campaign(device, n_peers: int):
 
 def scenario_phase(dev, card: str):
     """Phase 6.  Returns the kernels' launches in the timed campaign."""
-    import warnings
-
     import numpy as np
     import torch
 
@@ -1033,18 +1081,8 @@ def scenario_phase(dev, card: str):
     if flight_to_jsonable(rec) != doc["flight"]:
         fail("the timed campaign's record differs from the trace's")
     # Once more under the sync-debug mode, which costs host time: every
-    # operation that would stall the host on the device warns.  The
-    # record's read after the last round waits on an event, which the
-    # mode does not count.
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            run()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    sync_warnings = sum("synchronizing CUDA operation" in str(w.message)
-                        for w in caught)
+    # operation that would stall the host on the device warns.
+    sync_warnings = _sync_warnings(run)
     have = bitpack.unpack(final.have_w, model.m)
     held = have.sum(dim=0)
     invalid = final.msg_used & ~final.msg_valid
@@ -1718,6 +1756,549 @@ def serve_phase(dev, card: str):
     return launches, streaming
 
 
+# -- phase 8: the tree plane and the rest of the router family ------------------
+
+
+TREE_SMALL_N = 2000          # the tree/router width for card-vs-CPU runs
+ROUTER_ROUNDS, ROUTER_KILL_AT = 24, 8
+ROUTER_GEOMETRY = dict(n_slots=32, conn_degree=16, msg_window=N_MSGS)
+DIRECT_FRAC, DIRECT_SEED = 0.01, 11
+
+
+def _device_ops(fn, calls: int = 1) -> float:
+    """Device operations (kernels, copies, fills) a call of ``fn`` queues,
+    from a CUDA-only profiler trace of ``calls`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        fail("the CUDA trace holds no device events")
+    return len(ops) / calls
+
+
+def tree_replay(dev, card: str):
+    """The 100k tree against the JAX-written trace: join, a timed drain
+    and a timed heal after churn, 0 mismatches; the syncs inside the timed
+    rollouts (0), launches a step (device operations: kernels, copies,
+    fills) and each step phase's device time."""
+    import torch
+
+    from go_libp2p_pubsub_torch.models import tree_trace as TT
+    from go_libp2p_pubsub_torch.ops import tree as tree_ops
+
+    doc = TT.load_trace()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out, ex = TT.port_replay(doc, device=dev)
+    replay_s = time.perf_counter() - t0
+    diff = TT.mismatches(out, doc)
+    if diff:
+        fail(f"100k tree replay: mismatches by channel {diff}")
+    if not (ex["conditions"]["drained"] and ex["conditions"]["healed"]):
+        fail(f"100k tree: not drained and healed: {ex['conditions']}")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    model, states = ex["engine"].model, ex["states"]
+    rec = {name: doc["phases"][name]["record"] for name in doc["phases"]}
+    delivered = {
+        "drain": rec["drain"]["msgs_delivered_total"]["data"][-1]
+        - rec["join"]["msgs_delivered_total"]["data"][-1],
+        "churn": rec["churn"]["msgs_delivered_total"]["data"][-1]
+        - rec["drain"]["msgs_delivered_total"]["data"][-1]}
+    timed = {}
+    for name, start in (("drain", "published"), ("churn", "churned")):
+        steps, wall = doc["phases"][name]["steps"], ex["wall_s"][name]
+        syncs = _sync_warnings(
+            lambda s=states[start], k=steps: model.rollout(s, k))
+        if syncs:
+            fail(f"100k tree {name}: {syncs} syncs inside the rollout")
+        timed[name] = dict(steps=steps, wall_ms=wall * 1e3,
+                           steps_per_s=steps / wall,
+                           deliveries=delivered[name],
+                           deliveries_per_s=delivered[name] / wall,
+                           syncs_in_rollout=syncs)
+
+    # A drain step's device time by phase (CUDA events behind a device
+    # spin, so each brackets device work only), and operations a step.
+    s0 = model.rollout(states["published"], 8, record=False)[0]
+    ins = {"part": s0}
+    ins["watchdog"] = tree_ops._phase_part(s0)
+    ins["join"] = tree_ops._phase_watchdog(ins["watchdog"], 64)
+    ins["data"] = tree_ops._phase_join(ins["join"])
+    after_data, dead = tree_ops._phase_data(ins["data"])
+    ins["repair"] = after_data
+    ins["sizes"] = tree_ops._phase_repair(after_data, dead)
+    iters = tree_ops.default_size_iters(model.params.max_peers)
+    calls = {
+        "part": lambda: tree_ops._phase_part(ins["part"]),
+        "watchdog": lambda: tree_ops._phase_watchdog(ins["watchdog"], 64),
+        "join": lambda: tree_ops._phase_join(ins["join"]),
+        "data": lambda: tree_ops._phase_data(ins["data"]),
+        "repair": lambda: tree_ops._phase_repair(ins["repair"], dead),
+        "sizes": lambda: tree_ops._phase_sizes(ins["sizes"], iters),
+        "step": lambda: tree_ops.step(s0),
+    }
+    phase_ms = {name: _time_ms(fn, reps=10) for name, fn in calls.items()}
+    phase_launches = {name: _device_ops(fn) for name, fn in calls.items()}
+    per_step = _device_ops(lambda: tree_ops.step(s0), calls=4)
+    return dict(
+        n_peers=model.params.max_peers,
+        steps={name: doc["phases"][name]["steps"] for name in doc["phases"]},
+        stranded={name: doc["phases"][name]["stranded"]
+                  for name in doc["phases"]},
+        mismatches=0, replay_s=replay_s, timed=timed,
+        step_phase_ms=phase_ms, step_phase_launches=phase_launches,
+        launches_per_step=per_step, peak_mem_gb=peak, card=card)
+
+
+def bench_treecast_port(dev, card: str, n_msgs: int = 64, n_peers: int = 10):
+    """``bench.py``'s ``bench_treecast`` (config (a)) on the port: 10 peers,
+    a width-2 tree, 64 messages; the delivered count asserted as there."""
+    import torch
+
+    from go_libp2p_pubsub_torch.config import SimParams, TreeOpts
+    from go_libp2p_pubsub_torch.ops import tree as tree_ops
+
+    params = SimParams(max_peers=16, max_width=8, queue_cap=128, out_cap=128)
+    st = tree_ops.init_state(params, TreeOpts(), root=0, device=dev)
+    st = tree_ops.begin_subscribe_many(
+        st, torch.arange(16, device=dev) % 16 < n_peers)
+    st = tree_ops.run_steps(st, 32)
+    if int(st.joined.sum()) != n_peers:
+        fail("bench_treecast: the join walk did not converge")
+    st = tree_ops.publish_many(
+        st, torch.arange(n_msgs, dtype=torch.int32, device=dev))
+    steps = n_msgs + 8
+    tree_ops.run_steps(st, steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tree_ops.run_steps(st, steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    delivered = int(out.out_len.sum())
+    if delivered != n_msgs * (n_peers - 1):
+        fail(f"bench_treecast: expected full delivery, got {delivered}")
+    return {"treecast_10peer_deliveries_per_sec": delivered / dt,
+            "treecast_10peer_steps_per_sec": steps / dt,
+            "delivered": delivered, "steps": steps, "card": card}
+
+
+def _api_logs(device):
+    """The reference's integration contracts (``pubsub_test.go``:
+    TestBasicPubsub, TestNodesDropping, TestLowerNodesDropping,
+    TestNodesDroppingGracefully), two independent topics and a lossy
+    link profile, through ``SimNetwork`` on ``device`` -> what each
+    subscriber received, message for message."""
+    import numpy as np
+
+    from go_libp2p_pubsub_torch import SimNetwork, SimParams, TopicManager
+
+    def pubsub(n_hosts, max_peers, **kw):
+        net = SimNetwork(SimParams(max_peers=max_peers, **kw), device=device)
+        hosts = net.make_hosts(n_hosts)
+        tms = [TopicManager(h) for h in hosts]
+        topic = tms[0].new_topic("foobar")
+        subs = [tm.subscribe(hosts[0].id, "foobar") for tm in tms[1:]]
+        return net, hosts, topic, subs
+
+    def check(log, topic, subs, skip=(), mid=0):
+        mes = f"message number {mid}".encode()
+        topic.publish_message(mes)
+        for i, ch in enumerate(subs):
+            if i not in skip:
+                data = ch.get()
+                if data != mes:
+                    fail(f"SimNetwork on {device}: node {i} got {data!r}")
+                log.append((i, data))
+
+    def settle(log, net, subs):
+        net.step(16)
+        log.extend((i, list(s.messages())) for i, s in enumerate(subs)
+                   if not s.closed)
+
+    logs = {}
+    log = logs["basic_pubsub"] = []
+    net, hosts, topic, subs = pubsub(4, 8)
+    for i in range(10):
+        check(log, topic, subs, (), i)
+    for name, n_hosts, max_peers, victim, lossy, after in (
+            ("nodes_dropping", 4, 8, 1, {0, 2}, {0}),
+            ("lower_nodes_dropping", 8, 16, 3, {2, 5, 6}, {2}),
+            ("nodes_dropping_gracefully", 4, 8, None, {0}, {0})):
+        log = logs[name] = []
+        net, hosts, topic, subs = pubsub(n_hosts, max_peers)
+        check(log, topic, subs, (), 0)
+        if victim is None:
+            subs[0].close()
+        else:
+            hosts[victim].close()
+        if name != "nodes_dropping":
+            net.step(8)
+        check(log, topic, subs, lossy, 1)
+        settle(log, net, subs)
+        for i in range(10):
+            check(log, topic, subs, after, i + 100)
+    net = SimNetwork(SimParams(max_peers=8), device=device)
+    hosts = net.make_hosts(4)
+    tms = [TopicManager(h) for h in hosts]
+    t_a, t_b = tms[0].new_topic("alpha"), tms[1].new_topic("beta")
+    subs_a = [tms[i].subscribe(hosts[0].id, "alpha") for i in (1, 2, 3)]
+    subs_b = [tms[i].subscribe(hosts[1].id, "beta") for i in (0, 2, 3)]
+    t_a.publish_message(b"on-alpha")
+    t_b.publish_message(b"on-beta")
+    logs["multi_topic"] = [s.get() for s in subs_a + subs_b]
+    if logs["multi_topic"] != [b"on-alpha"] * 3 + [b"on-beta"] * 3:
+        fail(f"SimNetwork on {device}: topics crossed")
+    net, hosts, topic, subs = pubsub(10, 16, queue_cap=64, out_cap=64)
+    net.set_link_profile(np.zeros((16, 8), np.int32),
+                         np.full((16, 8), 0.2, np.float32))
+    for i in range(24):
+        topic.publish_message(b"lossy %d" % i)
+    net.step(48)
+    logs["lossy_links"] = [list(s.messages()) for s in subs]
+    return logs
+
+
+def _tree_under_faults(device, n: int):
+    """A 2,000-peer tree under a ``FaultPlan`` through ``run_with_faults``:
+    kills and graceful leaves at three steps, 48 root publishes."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_torch.config import SimParams, TreeOpts
+    from go_libp2p_pubsub_torch.ops import tree as tree_ops
+    from go_libp2p_pubsub_torch.utils.faults import FaultPlan, run_with_faults
+
+    st = tree_ops.init_state(SimParams(max_peers=n, queue_cap=64, out_cap=64),
+                             TreeOpts(), root=0, seed=3, device=device)
+    st = tree_ops.begin_subscribe_many(
+        st, torch.ones(n, dtype=torch.bool, device=st.alive.device))
+    st = tree_ops.run_steps(st, 32)
+    st = tree_ops.publish_many(
+        st, torch.arange(48, dtype=torch.int32, device=st.alive.device))
+    rng = np.random.default_rng(5)
+    plan = FaultPlan()
+    for t in (4, 20, 40):
+        pick = rng.choice(np.arange(1, n), 40, replace=False)
+        plan.kill_at(t, pick[:20], n).leave_at(t, pick[20:], n)
+    return run_with_faults(
+        st, 160, tree_ops.run_steps, plan,
+        lambda s, m: s._replace(alive=s.alive & ~m),
+        lambda s, m: s._replace(leaving=s.leaving | m))
+
+
+def _tree_churn_heal_wide(device, n: int):
+    """The canon's ``tree_churn_heal`` widened from 24 to ``n`` peers (its
+    8 spare rows kept: ``max_peers`` n + 8)."""
+    import dataclasses
+
+    from go_libp2p_pubsub_torch import scenario
+
+    spec = scenario.build("tree_churn_heal")
+    spec = dataclasses.replace(spec, name=spec.name + f"_{n}", model=dict(
+        spec.model, n_peers=n, max_peers=n + 8))
+    return scenario.run_scenario(spec, device=device)
+
+
+def _router_run(model, n_pub: int, kill_frac: float, rng_seed: int):
+    """``n_pub`` publishes (the first 4 forged) at seeded sources, then
+    ``ROUTER_ROUNDS`` rounds with ``kill_frac`` of the peers killed before
+    round ``ROUTER_KILL_AT`` -> (state, seconds of the rounds)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(rng_seed)
+    st = model.init(seed=0)
+    for slot in range(n_pub):
+        st = model.publish(st, int(rng.integers(model.n)), slot, slot >= 4)
+    kill = np.zeros(model.n, bool)
+    kill[rng.choice(np.arange(model.n), int(model.n * kill_frac),
+                    replace=False)] = True
+    kill_t = torch.from_numpy(kill).to(st.alive.device)
+    sync = (torch.cuda.synchronize if st.alive.device.type == "cuda"
+            else lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    st = model.run(st, ROUTER_KILL_AT)
+    st = st._replace(alive=st.alive & ~kill_t)
+    st = model.run(st, ROUTER_ROUNDS - ROUTER_KILL_AT)
+    sync()
+    return st, time.perf_counter() - t0
+
+
+def _router_models(device, n: int):
+    from go_libp2p_pubsub_torch.models.floodsub import FloodSub
+    from go_libp2p_pubsub_torch.models.randomsub import RandomSub
+
+    return {"floodsub": FloodSub(n_peers=n, device=device,
+                                 **ROUTER_GEOMETRY),
+            "randomsub": RandomSub(n_peers=n, device=device,
+                                   **ROUTER_GEOMETRY),
+            "randomsub_emit6": RandomSub(n_peers=n, emit=6, device=device,
+                                         **ROUTER_GEOMETRY)}
+
+
+def _delivery(model, st) -> float:
+    import numpy as np
+
+    frac, _ = model.delivery_stats(st)
+    return float(np.nanmean(frac.cpu().numpy()))
+
+
+def direct_edges_for(nbrs, rev, valid, frac: float, seed: int):
+    """A symmetric bool[N, K] mask over ``frac`` of a topology's wired edge
+    pairs (numpy slot form): each pair drawn once from its lower
+    endpoint's slot and mirrored through ``rev``."""
+    import numpy as np
+
+    from go_libp2p_pubsub_torch.ops.graphs import decode_index_plane
+
+    nb, rv = decode_index_plane(nbrs), decode_index_plane(rev)
+    own = valid & (np.arange(nb.shape[0])[:, None] < nb)
+    pick = own & (np.random.default_rng(seed).random(own.shape) < frac)
+    de = pick.copy()
+    i, s = np.nonzero(pick)
+    de[nb[i, s], rv[i, s]] = True
+    return de
+
+
+def _direct_model(device, n: int):
+    """``GossipSub(direct_edges=)`` over 1% of the pairs of the topology
+    ``init(seed=0)`` builds."""
+    from go_libp2p_pubsub_torch.models.gossipsub import GossipSub
+
+    kw = dict(n_peers=n, **ROUTER_GEOMETRY)
+    graph = GossipSub(device="cpu", **kw).build_graph(0)
+    de = direct_edges_for(*(t.numpy() for t in graph[:3]), DIRECT_FRAC,
+                          DIRECT_SEED)
+    return GossipSub(direct_edges=de, device=device, **kw), de
+
+
+def _direct_state(model, rng_seed: int = 1):
+    import numpy as np
+
+    rng = np.random.default_rng(rng_seed)
+    forged = set(rng.choice(N_MSGS, size=N_FORGED, replace=False).tolist())
+    st = model.init(seed=0)
+    for slot in range(N_MSGS):
+        st = model.publish(st, int(rng.integers(model.n)), slot,
+                           slot not in forged)
+    return st, forged
+
+
+class _Capture:
+    """Records, while installed, the first call's arguments of each kernel
+    wrapper (K1 ``propagate``, K2 ``exchange_select``).  A wrapper counts
+    its launches on the module's name, so the stand-in carries the count
+    and hands it back on exit."""
+
+    def __enter__(self):
+        import functools
+
+        from go_libp2p_pubsub_torch.ops import cuda_gossip
+
+        self.mod, self.calls = cuda_gossip, {}
+        self.orig = {name: getattr(cuda_gossip, name)
+                     for name in ("propagate", "exchange_select")}
+
+        def wrap(name, fn):
+            @functools.wraps(fn)  # carries ``launches`` along
+            def captured(*args, **kw):
+                if name not in self.calls:
+                    self.calls[name] = tuple(
+                        (a.clone() if hasattr(a, "clone") else a)
+                        for a in args), {
+                        k: (v.clone() if hasattr(v, "clone") else v)
+                        for k, v in kw.items()}
+                return fn(*args, **kw)
+            return captured
+
+        for name, fn in self.orig.items():
+            setattr(cuda_gossip, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            fn.launches = getattr(self.mod, name).launches
+            setattr(self.mod, name, fn)
+        return False
+
+
+def direct_small(dev) -> dict:
+    """The direct-edge construction at 2,000 peers on the card and on the
+    CPU (every leaf and record channel equal), and the K1/K2 inputs of one
+    of its rounds and one heartbeat against the plain versions."""
+    import torch
+
+    from go_libp2p_pubsub_torch.ops import cuda_gossip
+    from go_libp2p_pubsub_torch.ops import gossip_packed as plain
+
+    results = []
+    for device in (dev, "cpu"):
+        model, _ = _direct_model(device, TREE_SMALL_N)
+        st, _ = _direct_state(model)
+        if device is dev:
+            with _Capture() as cap:
+                st, rec = model.rollout(st, ROLLOUT_STEPS, record=True)
+        else:
+            st, rec = model.rollout(st, ROLLOUT_STEPS, record=True)
+        results.append((st, rec))
+    compared = _same_states(results[0][0], results[1][0],
+                            f"direct edges at {TREE_SMALL_N} peers")
+    for name, x in results[0][1].items():
+        y = results[1][1][name]
+        if x.dtype != y.dtype or not torch.equal(x.cpu(), y):
+            fail(f"direct edges at {TREE_SMALL_N}: record channel {name}")
+        compared += 1
+    errs = {}
+    for name, ref_fn in (("propagate", plain.propagate_packed),
+                         ("exchange_select", plain.exchange_select)):
+        if name not in cap.calls:
+            fail(f"the direct-edge run never called {name}")
+        args, kw = cap.calls[name]
+        out = getattr(cuda_gossip, name)(*args, **kw)
+        ref = ref_fn(*args, **kw)
+        torch.cuda.synchronize()
+        errs[name] = _max_err(out, ref)
+        if errs[name] != 0.0:
+            fail(f"{name} on the direct-edge inputs: max abs err {errs[name]}")
+    return dict(values_compared=compared, kernel_input_max_abs_err=errs)
+
+
+def direct_full(dev, card: str):
+    """``GossipSub(direct_edges=)`` at the headline geometry, main-path
+    style: 128 publishes (4 forged), init's 3 heartbeats, a warm and a
+    timed ``rollout(24, record=True)``."""
+    import torch
+
+    from go_libp2p_pubsub_torch.ops import cuda_gossip
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, de = _direct_model(dev, HEADLINE["n_peers"])
+    st, forged = _direct_state(model)
+    torch.cuda.synchronize()
+    model.rollout(st, ROLLOUT_STEPS, record=True)
+    torch.cuda.synchronize()
+    cuda_gossip.reset_launches()
+    t0 = time.perf_counter()
+    out, rec = model.rollout(st, ROLLOUT_STEPS, record=True)
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t0
+    launches = {"gossip_propagate": cuda_gossip.propagate.launches,
+                "gossip_exchange": cuda_gossip.exchange_select.launches}
+    if launches != {"gossip_propagate": ROLLOUT_STEPS,
+                    "gossip_exchange": ROLLOUT_STEPS // 8}:
+        fail(f"direct-edge rollout launched {launches}")
+    have = model.have_bool(out)
+    spread = max(int(have[:, i].sum()) for i in forged)
+    if spread > 1:
+        fail(f"a forged message spread to {spread} peers")
+    d = torch.from_numpy(de).to(dev)
+    if bool((out.mesh & d).any()):
+        fail("a direct edge is in the mesh after the run")
+    # Every direct edge's receiver i holds each valid message within one
+    # round of its sender j = nbrs[i, s] (where that round was run).
+    from go_libp2p_pubsub_torch.ops.graphs import decode_index_plane
+
+    i, s = torch.nonzero(d, as_tuple=True)
+    j = decode_index_plane(out.nbrs)[i, s].long()
+    fs = out.first_step
+    last = out.step - 1
+    valid = (out.msg_valid & out.msg_used)[None, :]
+    due = (fs[j] >= 0) & (fs[j] + 1 <= last) & valid
+    late = due & ((fs[i] < 0) | (fs[i] > fs[j] + 1))
+    if bool(late.any()):
+        fail(f"{int(late.sum())} direct-edge deliveries took over a round")
+    frac, p50, p99 = model.delivery_stats(out)
+    return dict(
+        n_peers=model.n, direct_edges=int(de.sum()),
+        direct_pairs_checked=int(due.sum()), forged_spread=spread,
+        rounds=ROLLOUT_STEPS, rollout_ms=rollout_s * 1e3,
+        rounds_per_s=ROLLOUT_STEPS / rollout_s, launches=launches,
+        delivery_mean=float(torch.nanmean(frac)), p50_rounds=float(p50),
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        card=card), launches
+
+
+def tree_phase(dev, card: str):
+    """Phase 8.  Returns the kernels' launches in the direct-edge run."""
+    import torch
+
+    from go_libp2p_pubsub_torch.ops import cuda_ed25519
+
+    sections = {}
+    t0 = time.perf_counter()
+    sections["tree_100k"] = tree_replay(dev, card)
+    print(f"tree tree_100k: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    sections["bench_treecast"] = bench_treecast_port(dev, card)
+
+    t1 = time.perf_counter()
+    if _api_logs(dev) != _api_logs("cpu"):
+        fail("SimNetwork: the card's subscribers received other bytes "
+             "than the CPU's")
+    sections["sim_network"] = dict(cases=6, card_equals_cpu=True,
+                                   seconds=time.perf_counter() - t1)
+
+    t1 = time.perf_counter()
+    small = {"faults": _same_states(
+        _tree_under_faults(dev, TREE_SMALL_N),
+        _tree_under_faults("cpu", TREE_SMALL_N), "run_with_faults")}
+    card_res = _tree_churn_heal_wide(dev, TREE_SMALL_N)
+    cpu_res = _tree_churn_heal_wide("cpu", TREE_SMALL_N)
+    if not (card_res.verdict.passed and cpu_res.verdict.passed):
+        fail("tree_churn_heal at 2,000 peers: the verdict is not PASS")
+    small["tree_churn_heal"] = _same_result(card_res, cpu_res,
+                                            "tree_churn_heal wide")
+    small_delivery = {}
+    for name, model in _router_models(dev, TREE_SMALL_N).items():
+        a, _ = _router_run(model, N_MSGS, 0.01, 3)
+        cpu_model = _router_models("cpu", TREE_SMALL_N)[name]
+        b, _ = _router_run(cpu_model, N_MSGS, 0.01, 3)
+        small[name] = _same_states(a, b, f"{name} at {TREE_SMALL_N}")
+        small_delivery[name] = _delivery(model, a)
+    sections["card_equals_cpu"] = dict(
+        n_peers=TREE_SMALL_N, leaves=small,
+        verdict=card_res.verdict.to_dict(), delivery=small_delivery,
+        seconds=time.perf_counter() - t1)
+
+    routers = {}
+    for name, model in _router_models(dev, HEADLINE["n_peers"]).items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        warm = model.init(seed=0)
+        model.run(warm, 2)
+        del warm
+        st, secs = _router_run(model, N_MSGS, 0.01, 3)
+        frac, p50 = model.delivery_stats(st)
+        mean = _delivery(model, st)
+        if mean < small_delivery[name] - 0.01:
+            fail(f"{name} at 100k: delivery {mean} below the 2,000-peer "
+                 f"run's {small_delivery[name]} - 0.01")
+        routers[name] = dict(
+            emit=getattr(model, "emit", None), delivery_mean=mean,
+            p50_rounds=float(p50), rounds=ROUTER_ROUNDS,
+            rounds_per_s=ROUTER_ROUNDS / secs, alive=int(st.alive.sum()),
+            peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        del st
+        torch.cuda.empty_cache()
+    sections["routers_100k"] = dict(routers, card=card)
+
+    sections["direct_small"] = direct_small(dev)
+    cuda_ed25519.reset_launches()
+    sections["direct_100k"], launches = direct_full(dev, card)
+    launches["ed25519_verify"] = cuda_ed25519.verify.launches
+    emit(dict(phase="tree", seconds=time.perf_counter() - t0, card=card,
+              **sections))
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -1752,11 +2333,13 @@ def main() -> None:
     launches = main_path(dev, card)
     scenario_launches = scenario_phase(dev, card)
     serve_launches, streaming_launches = serve_phase(dev, card)
+    tree_launches = tree_phase(dev, card)
     for r in records:
         r["launches"] = launches[r["name"]]
         r["launches_scenario"] = scenario_launches[r["name"]]
         r["launches_serve"] = serve_launches[r["name"]]
         r["launches_streaming"] = streaming_launches[r["name"]]
+        r["launches_tree"] = tree_launches[r["name"]]
         emit(dict(phase="kernel", **r))
     emit({"kernels": records})
     print(card, flush=True)

@@ -1,15 +1,17 @@
 """State and parameter bridge between the JAX package and the port.
 
-A JAX ``GossipState`` or ``MultiTopicState`` (any NamedTuple with its
-fields, leaves as numpy or JAX arrays) converts into the port's state of
-the same name and back through numpy, without importing JAX: it is how
-both sides start from one state, and how the streaming engine's snapshots
-keep the reference's file format.
+A JAX ``GossipState``, ``MultiTopicState``, ``TreeState``, ``FloodState``
+or ``RandomSubState`` (any NamedTuple with its fields, leaves as numpy or
+JAX arrays) converts into the port's state of the same name and back
+through numpy, without importing JAX: it is how both sides start from one
+state, and how the streaming engine's snapshots keep the reference's file
+format.
 
 - uint32 leaves (the packed message windows and the threefry keys) become
   int32 tensors with the same bit patterns (``.view``);
 - index planes keep their storage dtype (uint16 or int32);
-- ``step`` becomes the host int the port keeps;
+- ``step`` becomes the host int the port keeps (the tree's ``step_num``,
+  ``root``, ``width`` and ``max_width`` stay 0-d int32 tensors);
 - ``GossipSubParams`` / ``ScoreParams`` convert by their field dicts.
 """
 
@@ -22,8 +24,11 @@ import numpy as np
 import torch
 
 from .config import GossipSubParams, ScoreParams
+from .models.floodsub import FloodState
 from .models.gossipsub import GossipState, resolve_device
 from .models.multitopic import MultiTopicState
+from .models.randomsub import RandomSubState
+from .ops.tree import TreeState
 from .ops.scoring import GlobalCounters, TopicCounters
 
 # Leaves the JAX package stores as uint32 and the port as int32 patterns.
@@ -76,6 +81,20 @@ def multitopic_state_from_jax(st: Any, device="cuda") -> MultiTopicState:
     return _from_jax(MultiTopicState, st, device)
 
 
+def tree_state_from_jax(st: Any, device="cuda") -> TreeState:
+    """Reference ``TreeState`` -> the port's, on ``device`` (the card by
+    default; raises without one).  The uint32 key becomes its int32 bit
+    pattern."""
+    return _from_jax(TreeState, st, device)
+
+
+def flood_state_from_jax(st: Any, device="cuda"):
+    """Reference ``FloodState`` or ``RandomSubState`` (told apart by the
+    ``key`` field) -> the port's, on ``device``."""
+    cls = RandomSubState if hasattr(st, "key") else FloodState
+    return _from_jax(cls, st, device)
+
+
 def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
     a = t.detach().cpu().numpy()
     if name in U32_FIELDS:
@@ -108,6 +127,19 @@ def state_to_numpy(st: GossipState) -> GossipState:
     leaves in the reference's dtypes (uint32 windows and keys, ``step`` as
     int32), ready for ``jax_GossipState(*...)`` after ``jnp.asarray`` of
     each leaf."""
+    return _numpy_of(st)
+
+
+def tree_state_to_numpy(st: TreeState) -> TreeState:
+    """The port's ``TreeState`` -> numpy leaves in the reference's dtypes
+    (the uint32 key; ``root``, ``width``, ``max_width`` and ``step_num`` as
+    0-d int32)."""
+    return _numpy_of(st)
+
+
+def flood_state_to_numpy(st):
+    """The port's ``FloodState`` / ``RandomSubState`` -> numpy leaves in
+    the reference's dtypes (``step`` as int32, the uint32 key)."""
     return _numpy_of(st)
 
 

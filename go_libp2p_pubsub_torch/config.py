@@ -1,10 +1,13 @@
 """Typed protocol configuration for the PyTorch port.
 
-A copy of ``GossipSubParams`` and ``ScoreParams`` from the JAX package's
-``config.py``, field for field, with the same defaults and the same
-validation.  The port keeps its own copy because importing the JAX
-package pulls in ``jax`` (its ``__init__`` imports ``api.py``);
-``tests/test_torch_scaffold.py`` pins the two copies to each other.
+A copy of ``TreeOpts``, ``SimParams``, ``GossipSubParams`` and
+``ScoreParams`` from the JAX package's ``config.py``, field for field,
+with the same defaults and the same validation, and the reference's
+fanout constants ``DefaultTreeWidth=2`` / ``DefaultTreeMaxWidth=5``
+(``pubsub.go:16-17``).  The port keeps its own copy because importing the
+JAX package pulls in ``jax`` (its ``__init__`` imports ``api.py``);
+``tests/test_torch_scaffold.py`` and ``tests/test_torch_routers.py`` pin
+the two copies to each other.
 """
 
 from __future__ import annotations
@@ -12,6 +15,78 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict
+
+
+DEFAULT_TREE_WIDTH = 2       # reference pubsub.go:16
+DEFAULT_TREE_MAX_WIDTH = 5   # reference pubsub.go:17
+
+
+def _validate_positive(name: str, value: int, upper: int = 1 << 20) -> None:
+    if not (0 < value <= upper):
+        raise ValueError(f"{name} must be in (0, {upper}], got {value}")
+
+
+@dataclass(frozen=True)
+class TreeOpts:
+    """Per-topic fanout configuration (reference ``pubsub.go:49-52``).
+
+    ``tree_width`` is the steady-state admission capacity; ``tree_max_width``
+    is the priority capacity used when re-adopting orphans during repair
+    (``subtree.go:110-114``).
+    """
+
+    tree_width: int = DEFAULT_TREE_WIDTH
+    tree_max_width: int = DEFAULT_TREE_MAX_WIDTH
+
+    def __post_init__(self) -> None:
+        _validate_positive("tree_width", self.tree_width)
+        _validate_positive("tree_max_width", self.tree_max_width)
+        if self.tree_max_width < self.tree_width:
+            raise ValueError(
+                f"tree_max_width ({self.tree_max_width}) must be >= "
+                f"tree_width ({self.tree_width})"
+            )
+
+    @classmethod
+    def validated_from_wire(cls, tree_width: int, tree_max_width: int) -> "TreeOpts":
+        """Validate fanout params received in a welcome Update.
+
+        The reference adopts them blind (``subtree.go:211-213``,
+        ``// TODO: check these values``); we reject nonsense instead.
+        """
+        return cls(tree_width=tree_width, tree_max_width=tree_max_width)
+
+
+@dataclass(frozen=True)
+class SimParams:
+    """Shape parameters of the tree plane's device-resident state.
+
+    - ``max_peers``: row count of every per-peer tensor.
+    - ``max_width``: children-slot count per peer; must be >= the largest
+      ``tree_max_width`` any topic uses.
+    - ``queue_cap``: per-peer inbound FIFO depth -- the array form of stream
+      buffering between peers.
+    - ``out_cap``: delivered-message ring per subscriber; the array form of the
+      cap-16 delivery channel (``client.go:79``).  A full ring exerts
+      backpressure exactly as the reference's blocking channel send does
+      (``client.go:124-127``).
+    - ``repair_timeout_steps``: steps an orphan waits for adoption before
+      giving up and re-joining at the root -- the array form of
+      ``SubRepairTimeout`` (``client.go:14``), except rejoin is implemented
+      rather than ``panic("not yet implemented")`` (``client.go:96-98``).
+    """
+
+    max_peers: int = 64
+    max_width: int = 8
+    queue_cap: int = 32
+    out_cap: int = 64
+    repair_timeout_steps: int = 64
+
+    def __post_init__(self) -> None:
+        _validate_positive("max_peers", self.max_peers, 1 << 24)
+        _validate_positive("max_width", self.max_width, 1 << 10)
+        _validate_positive("queue_cap", self.queue_cap, 1 << 16)
+        _validate_positive("out_cap", self.out_cap, 1 << 16)
 
 
 @dataclass(frozen=True)

@@ -34,8 +34,9 @@ state:
 Covered: the closed loop (init, publish, kill_peers, step, rollout with
 the flight recorder, delivery_stats) and the scenario event path (the
 ``set_*`` mutators, ``graft_spammers``, per-edge delay with
-``max_edge_delay``/``set_edge_delay``, ``rollout_events``).  Direct
-peering, placement relabeling and the sharded path are not ported yet.
+``max_edge_delay``/``set_edge_delay``, ``rollout_events``) and direct
+peering (``direct_edges``).  Placement relabeling and the sharded path
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -340,6 +341,22 @@ def _nanquantile_int(lat: torch.Tensor, mask: torch.Tensor, q: float):
     return torch.where(count > 0, out, torch.nan)
 
 
+def record_to_host(record: Dict[str, torch.Tensor], device: torch.device
+                   ) -> Dict[str, np.ndarray]:
+    """Device channels -> host numpy: asynchronous copies into pinned
+    buffers, then one wait on an event behind them."""
+    if device.type != "cuda":
+        return {name: v.numpy() for name, v in record.items()}
+    host = {name: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            for name, v in record.items()}
+    for name, v in record.items():
+        host[name].copy_(v, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return {name: v.numpy() for name, v in host.items()}
+
+
 class _StagedEvents:
     """A schedule's event rows on the model's device: for each field, only
     the rows of the steps where it fires, copied once; and the valid
@@ -390,6 +407,7 @@ class GossipSub:
         builder=None,
         graft_spammers: Optional[np.ndarray] = None,
         max_edge_delay: int = 0,
+        direct_edges: Optional[np.ndarray] = None,
         index_dtype_override=None,
         device="cuda",
     ):
@@ -426,6 +444,20 @@ class GossipSub:
         # refused attempts accrue the P7 behaviour penalty.
         self.graft_spammers = None if graft_spammers is None else self._t(
             np.asarray(graft_spammers, bool))
+        # Direct (explicit) peering, go-gossipsub's WithDirectPeers: a
+        # symmetric bool[N, K] slot mask of always-forward edges.  They
+        # relay every round regardless of mesh membership or the remote's
+        # score (graylist bypass) and stay out of mesh maintenance, gossip
+        # and fanout.  As in the reference (a documented deviation), copies
+        # arriving over them still feed the per-slot delivery counters.
+        if direct_edges is None:
+            self.direct_edges = None
+        else:
+            de = np.asarray(direct_edges, bool)
+            if de.shape != (n_peers, n_slots):
+                raise ValueError(
+                    f"direct_edges must be [N={n_peers}, K={n_slots}]")
+            self.direct_edges = self._t(de)
 
     def _t(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -445,6 +477,8 @@ class GossipSub:
             str(self.idx_dtype), str(self.rev_dtype),
             None if self.graft_spammers is None
             else bytes(self.graft_spammers.cpu().numpy()),
+            None if self.direct_edges is None
+            else bytes(np.packbits(self.direct_edges.cpu().numpy())),
         )
 
     def __eq__(self, other):
@@ -478,6 +512,18 @@ class GossipSub:
         nbrs, rev, valid, outbound = self.build_graph(seed)
         n, k, m, w = self.n, self.k, self.m, self.w
         dev = self.device
+        if self.direct_edges is not None:
+            # Direct peering is mutual: the mask must sit on wired slots and
+            # be symmetric over the slot pairing.
+            de = self.direct_edges.cpu().numpy()
+            nv = valid.cpu().numpy()
+            if (de & ~nv).any():
+                raise ValueError("direct_edges marks an unwired slot")
+            jn = np.clip(decode_index_plane(nbrs).cpu().numpy(), 0, n - 1)
+            rv = np.clip(decode_index_plane(rev).cpu().numpy(), 0, k - 1)
+            if (de != (de[jn, rv] & nv)).any():
+                raise ValueError(
+                    "direct_edges must be symmetric over the slot pairing")
         zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)  # noqa: E731
         alive0 = torch.ones(n, dtype=torch.bool, device=dev)
         sub0 = alive0.clone() if subscribed is None else self._t(
@@ -570,6 +616,10 @@ class GossipSub:
             & st.nbr_sub[src]
             & (st.scores[src] >= sp.publish_threshold)
         )
+        # Direct peers are covered by the always-forward path; go's Publish
+        # never selects them into flood/fanout targets.
+        if self.direct_edges is not None:
+            eligible = eligible & ~self.direct_edges[src]
         fanout, fanout_age = st.fanout, st.fanout_age
         if p.flood_publish:
             targets = eligible
@@ -762,6 +812,9 @@ class GossipSub:
 
         part = st.alive & st.subscribed
         edge_ok = st.edge_live & st.nbr_sub
+        # Direct edges never join the mesh and carry no IHAVE/IWANT.
+        if self.direct_edges is not None:
+            edge_ok = edge_ok & ~self.direct_edges
         hb_idx = st.step // self.heartbeat_steps
         do_og = (hb_idx % p.opportunistic_graft_ticks) == 0
 
@@ -802,6 +855,8 @@ class GossipSub:
         # advertise only ids they originated.
         serve_ok = ~safe_gather(st.gossip_mute, px.nbrs, True)
         gossip_edges = edge_live & nbr_sub
+        if self.direct_edges is not None:
+            gossip_edges = gossip_edges & ~self.direct_edges
         origin = bitpack.pack(
             (st.first_step == st.msg_birth[None, :]) & st.msg_used[None, :])
         adv_src = torch.where(
@@ -822,9 +877,13 @@ class GossipSub:
         promise_viol = segment_sum(broken.reshape(-1), promise_ids, n + 1)[:n]
         g = g._replace(behaviour_penalty=g.behaviour_penalty + promise_viol)
 
+        # Fanout excludes direct edges (go's getPeers filter).
+        fanout_edges = edge_live & nbr_sub
+        if self.direct_edges is not None:
+            fanout_edges = fanout_edges & ~self.direct_edges
         fanout, age = self.fanout_maintenance(
             kfan, st.fanout, st.fanout_age, st.subscribed, st.alive,
-            edge_live & nbr_sub, scores,
+            fanout_edges, scores,
         )
 
         expired = st.msg_active & (
@@ -866,6 +925,12 @@ class GossipSub:
 
         relay_mesh = st.mesh & (
             st.scores >= self.score_params.graylist_threshold)
+        # Direct edges always relay (graylist bypass, mesh-independent),
+        # gated by the RECEIVER's subscription (relay_mesh is receiver-
+        # indexed); K1 still masks dead remotes through edge_live.
+        if self.direct_edges is not None:
+            relay_mesh = relay_mesh | (
+                self.direct_edges & st.subscribed[:, None])
         valid_w = bitpack.pack(st.msg_valid & st.msg_active)
         # Per-edge delay: each edge reads its sender's fresh plane from
         # edge_delay rounds back, (step - 1 - d) mod D of the history.
@@ -1099,18 +1164,7 @@ class GossipSub:
 
     def _to_host(self, record: Dict[str, torch.Tensor]
                  ) -> Dict[str, np.ndarray]:
-        """Device channels -> host numpy: asynchronous copies into pinned
-        buffers, then one wait on an event behind them."""
-        if self.device.type != "cuda":
-            return {name: v.numpy() for name, v in record.items()}
-        host = {name: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                for name, v in record.items()}
-        for name, v in record.items():
-            host[name].copy_(v, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        done.synchronize()
-        return {name: v.numpy() for name, v in host.items()}
+        return record_to_host(record, self.device)
 
     def _finish_record(self, record: Dict[str, torch.Tensor]
                        ) -> Dict[str, np.ndarray]:

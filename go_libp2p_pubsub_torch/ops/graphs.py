@@ -148,12 +148,14 @@ def top_mask(vals: torch.Tensor, count, kmax=None) -> torch.Tensor:
 
 def nth_free_slot(row_used: torch.Tensor, rank) -> torch.Tensor:
     """Index of the ``rank``-th free (False) slot of a bool[W] row; W when
-    there is none."""
-    w = row_used.shape[0]
+    there is none.  Batched over leading axes: bool[N, W] rows with an
+    int[N] rank give int32[N] (the reference's ``jax.vmap`` of it)."""
+    w = row_used.shape[-1]
     slot_ids = torch.where(
         ~row_used, torch.arange(w, dtype=torch.int32, device=row_used.device), w
     )
-    ordered = torch.sort(slot_ids, stable=True).values
+    ordered = torch.sort(slot_ids, dim=-1, stable=True).values
     rank = torch.as_tensor(rank, device=row_used.device)
-    pick = ordered[rank.clamp(0, w - 1).long()]
+    idx = rank.clamp(0, w - 1).long().unsqueeze(-1)
+    pick = ordered.gather(-1, idx).squeeze(-1)
     return torch.where(rank < w, pick, w).to(torch.int32)

@@ -1,18 +1,19 @@
 """Scenario compiler: lower a :class:`ScenarioSpec` to event tensors.
 
-The JAX package's ``scenario/compiler.py`` for the ``gossipsub`` and
-``multitopic`` families, in the port.  The lowering is a pure host-side function of the spec: every
-random draw (churn victims, workload publishers, link cohorts) comes from
-a ``np.random.default_rng([seed, tag, index])`` substream, so the same
+The JAX package's ``scenario/compiler.py`` for the ``gossipsub``,
+``multitopic`` and ``treecast`` families, in the port.  The lowering is
+a pure host-side function of the spec: every random draw (churn
+victims, workload publishers, link cohorts) comes from a
+``np.random.default_rng([seed, tag, index])`` substream, so the same
 spec always produces the same event tensors -- the foundation of
 bit-for-bit replay, and what lets the port replay a trace the JAX package
 wrote.  The output is a :class:`CompiledScenario`: the model on
 ``device``, its initialized (and possibly adversary-prepared) state, and
 one ``ops.schedule.GossipEvents`` (``MultiTopicEvents`` for the
-multitopic family) of host numpy rows whose leading axis is the step of
-the model's ``rollout_events``.  Multitopic lowers only the ``spam``/
-``promise_spam``/``sybil`` attack kinds and refuses graceful churn, fault
-leaves and rejoins, as the reference does.
+multitopic family, ``TreeEvents`` for treecast) of host numpy rows whose
+leading axis is the step of the model's ``rollout_events``.  Multitopic
+lowers only the ``spam``/``promise_spam``/``sybil`` attack kinds and
+refuses graceful churn, fault leaves and rejoins, as the reference does.
 
 The state surgery of the attack waves (sybil ``ip_group``, the cold-boot
 mesh and counter rewrite, the eclipse attacker draw) reads the state back
@@ -21,9 +22,9 @@ device in the state's storage dtypes.
 
 ``compile_streaming_plan`` lowers a ``multitopic`` spec for the serving
 plane (a host publish timeline, the fault stages and the controller
-ladder), as the reference does.  The other families (``treecast``,
-``rlnc``, ``hybrid``) are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP item, on both planes.
+ladder), as the reference does.  The coded families (``rlnc``,
+``hybrid``) are not ported yet and raise ``NotImplementedError`` naming
+their ROADMAP item, on both planes.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import GossipSubParams, ScoreParams
+from ..config import GossipSubParams, ScoreParams, SimParams, TreeOpts
 from ..ops import schedule as sched
 from ..ops.graphs import decode_index_plane
 from .spec import ScenarioSpec
@@ -46,7 +47,6 @@ _TAG_WORKLOAD, _TAG_CHURN, _TAG_LINK, _TAG_ATTACK = 1, 2, 3, 4
 # The families the port does not run yet, with the ROADMAP item that
 # ports each one.
 _NOT_PORTED = {
-    "treecast": "ROADMAP A8 (router family and tree)",
     "rlnc": "ROADMAP A9 (coded plane)",
     "hybrid": "ROADMAP A9 (coded plane)",
 }
@@ -83,7 +83,7 @@ def _check_family(spec: ScenarioSpec) -> None:
         raise NotImplementedError(
             f"the {spec.family} family is not ported yet: "
             f"{_NOT_PORTED[spec.family]}")
-    if spec.family not in ("gossipsub", "multitopic"):
+    if spec.family not in ("gossipsub", "multitopic", "treecast"):
         raise ValueError(f"unknown scenario family {spec.family!r}")
 
 
@@ -98,6 +98,21 @@ def build_model(spec: ScenarioSpec, graft_spammers=None, device="cuda"):
         if graft_spammers is not None:
             raise ValueError("graft_spam waves are gossipsub-only")
         return MultiTopicGossipSub(device=device, **_split_model_kwargs(spec))
+    if spec.family == "treecast":
+        # Model kwargs split into SimParams / TreeOpts fields.
+        from ..models.treecast import TreeCast
+
+        kw = dict(spec.model)
+        kw.pop("n_peers", None)
+        sim_names = {f.name for f in dataclasses.fields(SimParams)}
+        opt_names = {f.name for f in dataclasses.fields(TreeOpts)}
+        sim_kw = {k: v for k, v in kw.items() if k in sim_names}
+        opt_kw = {k: v for k, v in kw.items() if k in opt_names}
+        unknown = set(kw) - sim_names - opt_names
+        if unknown:
+            raise ValueError(f"unknown treecast model keys: {sorted(unknown)}")
+        return TreeCast(params=SimParams(**sim_kw), opts=TreeOpts(**opt_kw),
+                        device=device)
     from ..models.gossipsub import GossipSub
 
     kw = _split_model_kwargs(spec)
@@ -143,6 +158,8 @@ def _window(start: int, stop: Optional[int], n_steps: int) -> Tuple[int, int]:
 def compile_scenario(spec: ScenarioSpec, device="cuda") -> CompiledScenario:
     """Lower ``spec`` -> (model on ``device``, initialized state, events)."""
     _check_family(spec)
+    if spec.family == "treecast":
+        return _compile_tree(spec, device)
     return _compile_gossip_like(spec, device)
 
 
@@ -517,6 +534,148 @@ def _compile_gossip_like(spec: ScenarioSpec, device) -> CompiledScenario:
         spec=spec, model=model, state=st, events=events,
         attackers=attackers if attackers.any() else None,
         target=target, n_publishes=n_publishes,
+    )
+
+
+# ---------------------------------------------------------------------------
+# treecast lowering
+# ---------------------------------------------------------------------------
+
+
+def _init_tree_state(model, spec: ScenarioSpec):
+    """A fully joined tree of ``n_peers`` (batched join walk; the host reads
+    the membership back after every step, as the reference does)."""
+    from ..ops import tree as tree_ops
+
+    n_peers = spec.model.get("n_peers", model.params.max_peers)
+    if n_peers > model.params.max_peers:
+        raise ValueError("n_peers exceeds max_peers")
+    st = model.init(root=0)
+    mask = np.zeros(model.params.max_peers, bool)
+    mask[:n_peers] = True
+    st = tree_ops.begin_subscribe_many(st, torch.from_numpy(mask).to(
+        model.device))
+    for _ in range(8 * n_peers):
+        if bool(st.joined[:n_peers].all()):
+            break
+        st = tree_ops.step(st)
+    else:
+        raise RuntimeError("tree join walk did not converge")
+    return st
+
+
+def _compile_tree(spec: ScenarioSpec, device) -> CompiledScenario:
+    T = spec.n_steps
+    if spec.attacks:
+        raise ValueError("attack waves are not lowered for treecast")
+    if spec.links:
+        raise ValueError("link windows are not lowered for treecast "
+                         "(use set_link_profile on the state)")
+    slo = spec.slo
+    if any(v is not None for v in (
+        slo.max_p50, slo.max_p99, slo.max_capture_frac,
+        slo.max_final_attacker_mesh_edges, slo.min_final_target_honest_edges,
+    )):
+        raise ValueError(
+            "latency/capture SLOs need the mesh flight recorder; the tree "
+            "record grades delivery totals and orphan backlog"
+        )
+
+    model = build_model(spec, device=device)
+    st = _init_tree_state(model, spec)
+    n = model.params.max_peers
+    n_peers = spec.model.get("n_peers", n)
+
+    requests: List[int] = [0] * T
+    for wi, w in enumerate(spec.workloads):
+        start, stop = _window(w.start, w.stop, T)
+        steps = [start] if w.kind == "burst" else range(start, stop, w.every)
+        for t in steps:
+            requests[t] += w.n_msgs
+    n_publishes = sum(requests)
+    if n_publishes > model.params.queue_cap:
+        raise ValueError(
+            f"{n_publishes} root publishes exceed queue_cap "
+            f"{model.params.queue_cap}"
+        )
+    pub_width = max(1, max(requests, default=0))
+    events = sched.empty_tree_events(T, n, pub_width)
+
+    alive = np.zeros(n, bool)
+    alive[:n_peers] = True
+    protected = np.zeros(n, bool)
+    protected[0] = True  # the root
+
+    churn_events: List[List[tuple]] = [[] for _ in range(T)]
+    for ci, ph in enumerate(spec.churn):
+        start, stop = _window(ph.start, ph.stop, T)
+        for t in range(start, stop, ph.every):
+            churn_events[t].append(("phase", ci))
+    if spec.faults:
+        for t_str, ids in spec.faults.get("kills", {}).items():
+            t = int(t_str)
+            if 0 <= t < T:
+                churn_events[t].append(("fault_kill", ids))
+        for t_str, ids in spec.faults.get("leaves", {}).items():
+            t = int(t_str)
+            if 0 <= t < T:
+                churn_events[t].append(("fault_leave", ids))
+
+    churn_rngs = [
+        _rng(spec.seed, _TAG_CHURN, ci) for ci in range(len(spec.churn))
+    ]
+    churn_cursor = [0] * len(spec.churn)
+    rejoin_at: List[List[list]] = [[] for _ in range(T + 1)]
+    msg_id = 0
+
+    for t in range(T):
+        for ids in rejoin_at[t]:
+            ids = [i for i in ids if not alive[i]]
+            if ids:
+                events.sub[t][ids] = True
+                alive[ids] = True
+        for kind, payload in churn_events[t]:
+            if kind == "phase":
+                ci = payload
+                ph = spec.churn[ci]
+                if ph.peers is not None:
+                    k0 = churn_cursor[ci]
+                    victims = [
+                        p for p in ph.peers[k0 : k0 + ph.kills_per_event]
+                        if 0 <= p < n
+                    ]
+                    churn_cursor[ci] = k0 + ph.kills_per_event
+                else:
+                    pool = np.flatnonzero(alive & ~protected)
+                    take = min(ph.kills_per_event, len(pool))
+                    victims = (
+                        churn_rngs[ci].choice(pool, size=take, replace=False)
+                        .tolist() if take else []
+                    )
+                if not victims:
+                    continue
+                field = events.leave if ph.graceful else events.kill
+                field[t][victims] = True
+                alive[victims] = False
+                if ph.rejoin_after is not None:
+                    back = t + ph.rejoin_after
+                    if back <= T - 1:
+                        rejoin_at[back].append(victims)
+            elif kind == "fault_kill":
+                ids = [i for i in payload if 0 <= i < n]
+                events.kill[t][ids] = True
+                alive[ids] = False
+            else:
+                ids = [i for i in payload if 0 <= i < n]
+                events.leave[t][ids] = True
+                alive[ids] = False
+        for _ in range(requests[t]):
+            sched.add_publish(events, t, {"msg": msg_id})
+            msg_id += 1
+
+    return CompiledScenario(
+        spec=spec, model=model, state=st, events=events,
+        attackers=None, target=None, n_publishes=n_publishes,
     )
 
 

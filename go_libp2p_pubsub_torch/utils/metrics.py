@@ -1,8 +1,8 @@
 """Metrics over model state: reductions on the device, digests on the host.
 
-Port of the JAX package's ``utils/metrics.py``: ``gossip_metrics`` is a
-set of reductions over a ``GossipState`` that stays on the device until
-the caller reads it; ``flight_summary`` brings a rollout's flight record
+Port of the JAX package's ``utils/metrics.py``: ``tree_metrics`` and
+``gossip_metrics`` are reductions over a ``TreeState`` / ``GossipState``
+that stay on the device until the caller reads them; ``flight_summary`` brings a rollout's flight record
 to the host once.  ``snapshot``, ``quantiles`` and the host-side
 ``MetricsRegistry`` with its Prometheus rendering are copies of the
 reference's (``snapshot`` reads tensors instead of jax arrays), which the
@@ -21,6 +21,27 @@ import torch
 
 from ..ops import bitpack
 from ..ops.histogram import hist_quantile
+
+
+def tree_metrics(st) -> Dict[str, torch.Tensor]:
+    """Reductions over a ``TreeState`` (the v0-parity engine): delivery
+    totals (``client.go:124-127``), membership (``subtree.go:152``) and the
+    orphan backlog, as int32 device scalars."""
+    i32 = torch.int32
+    alive = st.alive
+    joined = st.joined & alive
+    orphaned = alive & ~st.joined & (st.join_target >= 0)
+    return {
+        "peers_alive": alive.sum(dtype=i32),
+        "peers_joined": joined.sum(dtype=i32),
+        "peers_orphaned": orphaned.sum(dtype=i32),
+        "msgs_delivered_total": st.out_len.sum(dtype=i32),
+        "msgs_undrained": (st.out_len - st.out_drained).sum(dtype=i32),
+        "queue_backlog": st.q_len.sum(dtype=i32),
+        "max_queue_depth": st.q_len.max(),
+        "tree_depth_proxy": st.subtree_size.max(),
+        "step": st.step_num,
+    }
 
 
 def gossip_metrics(st) -> Dict[str, torch.Tensor]:

@@ -1,8 +1,9 @@
 """The canon on the port: every sim-supported ``gossipsub`` campaign of the
-JAX package's canon, run through the port's ``scenario.run_scenario`` on
-the CPU and through the reference's, must lower to the same event rows
-and give the same verdict, the same flight record (exact, through the
-trace encoding) and the same final state, leaf for leaf."""
+JAX package's canon, and the treecast campaign ``tree_churn_heal``, run
+through the port's ``scenario.run_scenario`` on the CPU and through the
+reference's, must lower to the same event rows and give the same
+verdict, the same flight record (exact, through the trace encoding) and
+the same final state, leaf for leaf."""
 
 import numpy as np
 import pytest
@@ -42,5 +43,20 @@ def test_canon_campaign_matches_reference(name):
         np.testing.assert_array_equal(out.compiled.attackers,
                                       ref.compiled.attackers)
     assert out.verdict.to_dict() == ref.verdict.to_dict()
+    assert_same_record(ref.record, out.record, name)
+    assert_same_state(ref.final_state, out.final_state, name)
+
+
+def test_tree_churn_heal_matches_reference():
+    name = "tree_churn_heal"
+    assert jscn.build(name).family == "treecast"
+    ref = jscn.run_scenario(jscn.build(name))
+    out = tscn.run_scenario(tscn.build(name), device="cpu")
+    assert_same_state(ref.compiled.state, out.compiled.state, name + " init")
+    assert_same_events(ref.compiled.events, out.compiled.events, name)
+    assert out.compiled.n_publishes == ref.compiled.n_publishes
+    assert out.compiled.attackers is None and out.compiled.target is None
+    assert out.verdict.to_dict() == ref.verdict.to_dict()
+    assert out.verdict.passed
     assert_same_record(ref.record, out.record, name)
     assert_same_state(ref.final_state, out.final_state, name)
