@@ -130,7 +130,29 @@ Phases (each one fails the run, exit code != 0, on any error):
               peers main-path style (128 publishes, 4 forged, a timed
               ``rollout(24, record=True)``: K1 24 and K2 3 launches,
               forged spread <= 1, every direct edge's receiver within one
-              round of its sender, no direct edge in the mesh).
+              round of its sender, no direct edge in the mesh);
+9. coded    -- the coded plane: the coded trace the JAX package wrote
+              (``models/traces/coded.trace.json``: RLNC at 16,384 peers
+              and the hybrid at 65,536, every step's receipts, rank
+              histogram, stamp and loss digests, coded edges) and the
+              canon's three hybrid streaming campaigns (the JAX runner's
+              trace under the stepping clock) replayed with 0
+              mismatches; ``degraded_links_rlnc`` on the card and on the
+              CPU (equal verdict, record, state); at 2,000 peers card =
+              CPU for RLNC with a decimated quarter, the hybrid under
+              decimation and Bernoulli loss, and a hybrid streaming
+              engine killed mid-decode and restored (every leaf, record
+              channel, flight tail and completion); RLNC at
+              ``bench.py``'s ``RLNC_SCALE`` widths and 100,000 peers, clean
+              and degraded (validated msgs/s, delivery, p50/p99, 0 syncs,
+              forged spread <= 1, peak memory, a step's device time by
+              part and its launches); and the hybrid at ``HYBRID_SCALE``'s
+              widths and 100,000 peers against its eager-forced twin over
+              d = 0 ... 3 and p = 0.125 ... 0.625 (points past 180 s
+              dropped and listed; the d = 0 identity leaf for leaf; K1 =
+              runs x 32 and K2 = runs x 8; 0 syncs; the crossover; one
+              round's K1 and one heartbeat's K2 inputs, coded edges
+              present, against the plain versions, max abs err 0).
 
 The last line is ``{"ok": true, "device": {...}}``; nothing else is
 printed after a failure.
@@ -2299,6 +2321,463 @@ def tree_phase(dev, card: str):
     return launches
 
 
+# -- phase 9: the coded plane ---------------------------------------------------
+
+
+CODED_SMALL_N = 2000         # the coded plane's width for card-vs-CPU runs
+CODED_SMALL_STEPS = 8
+# bench.py:89-91 RLNC_SCALE (window = N_MSGS) and :108-111 HYBRID_SCALE.
+RLNC_GEOMETRY = dict(n_slots=16, conn_degree=8, gen_size=8,
+                     msg_window=N_MSGS)
+RLNC_STEPS, RLNC_COHORT, RLNC_DELAY = 24, 0.25, 2
+HYBRID_GEOMETRY = dict(n_slots=16, conn_degree=8, gen_size=4, msg_window=32,
+                       heartbeat_steps=4)
+HYBRID_STEPS = 32
+HYBRID_GRID = (("d", 0), ("d", 1), ("d", 2), ("d", 3), ("p", 0.125),
+               ("p", 0.25), ("p", 0.375), ("p", 0.5), ("p", 0.625))
+HYBRID_BUDGET_S = 180.0      # the grid stops adding points past this
+
+
+def _same_coded(a, b, what: str) -> int:
+    """Every leaf of two coded states (any device) bit for bit."""
+    from go_libp2p_pubsub_torch.models.coded_trace import PortEngine
+
+    la, lb = PortEngine().leaves(None, a), PortEngine().leaves(None, b)
+    if la.keys() != lb.keys():
+        fail(f"{what}: the states' leaves differ")
+    for name in la:
+        x, y = la[name], lb[name]
+        if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+            fail(f"{what}: differ in state leaf {name}")
+    return len(la)
+
+
+def _same_channels(ra, rb, what: str) -> int:
+    import numpy as np
+
+    if sorted(ra) != sorted(rb):
+        fail(f"{what}: the record channels differ")
+    for name in ra:
+        x, y = (np.asarray(r[name].cpu() if hasattr(r[name], "cpu")
+                           else r[name]) for r in (ra, rb))
+        if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+            fail(f"{what}: differ in record channel {name}")
+    return len(ra)
+
+
+def coded_replays(dev):
+    """The coded trace and the canon's three hybrid streaming campaigns
+    against the JAX-written traces (0 mismatches), and
+    ``degraded_links_rlnc`` on the card and on the CPU (equal verdict,
+    record and state)."""
+    from go_libp2p_pubsub_torch import scenario
+    from go_libp2p_pubsub_torch.models import coded_trace as CT
+    from go_libp2p_pubsub_torch.scenario import stream_canon
+
+    t0 = time.perf_counter()
+    doc = CT.load_trace()
+    _, bad, timings = CT.port_replay(doc, dev)
+    if bad:
+        fail(f"coded trace replay: {len(bad)} mismatches: {bad[:8]}")
+    out = dict(coded_trace=dict(
+        header=doc["header"], mismatches=0,
+        steps_per_s={k: len(v) / sum(v) for k, v in timings.items()},
+        seconds=time.perf_counter() - t0))
+    t1 = time.perf_counter()
+    res = stream_canon.port_replay(dev, names=stream_canon.HYBRID_CAMPAIGNS)
+    bad = {name: diff for name, diff in res.items() if diff}
+    if bad:
+        fail(f"hybrid streaming canon replay: mismatches {bad}")
+    sdoc = stream_canon.load_trace()["campaigns"]
+    out["hybrid_canon"] = dict(
+        campaigns=sorted(res), mismatches=0,
+        verdicts={n: sdoc[n]["verdict"]["passed"] for n in res},
+        seconds=time.perf_counter() - t1)
+    t1 = time.perf_counter()
+    name = "degraded_links_rlnc"
+    card = scenario.run_scenario(scenario.build(name), device=dev)
+    cpu = scenario.run_scenario(scenario.build(name), device="cpu")
+    if card.verdict.to_dict() != cpu.verdict.to_dict():
+        fail(f"{name}: the card's verdict is not the CPU's")
+    n = _same_channels(card.record, cpu.record, name)
+    n += _same_coded(card.final_state, cpu.final_state, name)
+    out[name] = dict(verdict=card.verdict.passed, values_compared=n,
+                     seconds=time.perf_counter() - t1)
+    return out
+
+
+def _rlnc_small(device):
+    from go_libp2p_pubsub_torch.models.rlnc import RLNC
+
+    import numpy as np
+
+    n = CODED_SMALL_N
+    model = RLNC(device=device, n_peers=n, **dict(RLNC_GEOMETRY,
+                                                  msg_window=16))
+    rng = np.random.default_rng(5)
+    delay = np.zeros(n, np.int32)
+    delay[rng.choice(n, size=round(RLNC_COHORT * n), replace=False)] = \
+        RLNC_DELAY
+    st = model.set_gossip_delay(model.init(1), delay)
+    for slot in range(16):
+        st = model.publish(st, int(rng.integers(n)), slot, slot % 7 != 3)
+    return model.rollout(st, CODED_SMALL_STEPS, record=True)
+
+
+def _hybrid_small(device, loss):
+    from go_libp2p_pubsub_torch.models.hybrid import HybridGossipSub
+
+    import numpy as np
+
+    n = CODED_SMALL_N
+    model = HybridGossipSub(device=device, n_peers=n, **HYBRID_GEOMETRY)
+    st = model.init(2)
+    st = (model.set_ingress_loss(st, loss[1]) if loss[0] == "d"
+          else model.set_ingress_loss_p(st, loss[1]))
+    rng = np.random.default_rng(6)
+    for slot in range(32):
+        st = model.publish(st, int(rng.integers(n)), slot, True)
+    return model.rollout(st, CODED_SMALL_STEPS, record=True)
+
+
+def _hybrid_engine_crash(device, path):
+    """A hybrid streaming engine under decimation 2, killed after two
+    chunks: a fresh engine warms up, restores the snapshot (partial
+    ranks in its meta) and serves on, clean after three more chunks."""
+    from go_libp2p_pubsub_torch.models.hybrid import HybridGossipSub
+    from go_libp2p_pubsub_torch.serve import IngestRing, StreamingEngine
+    from go_libp2p_pubsub_torch.serve import stream_trace as S
+    from go_libp2p_pubsub_torch.utils import checkpoint
+
+    model = HybridGossipSub(device=device, n_peers=CODED_SMALL_N,
+                            **HYBRID_GEOMETRY)
+
+    def pair():
+        clock = S.SteppingClock()
+        ring = IngestRing(capacity=64, policy="block", clock=clock)
+        eng = StreamingEngine(model, ring, chunk_steps=4, pub_width=4,
+                              clock=clock, snapshot_path=path)
+        eng.warmup()
+        return eng, ring
+
+    def push(ring, lo, hi):
+        for i in range(lo, hi):
+            ring.push(topic=0, payload=b"coded %d" % i,
+                      publisher=(37 * i) % CODED_SMALL_N)
+
+    eng, ring = pair()
+    eng.set_ingress_delay(2)
+    push(ring, 0, 16)
+    eng.run_chunk()
+    eng.run_chunk()
+    eng.snapshot()
+    ranks = checkpoint.meta(path)["decode_ranks"]
+    eng, ring = pair()
+    eng.restore(path)
+    push(ring, 16, 24)
+    for _ in range(3):
+        eng.run_chunk()
+    eng.set_ingress_delay(0)
+    eng.run_until_drained(max_chunks=32)
+    return eng, ranks
+
+
+def coded_small(dev):
+    """Card = CPU at 2,000 peers: RLNC with a quarter of the peers
+    decimated, the hybrid under decimation and under Bernoulli loss (all
+    recorded), and a hybrid engine crash and restore: every state leaf,
+    record channel, flight tail and completion equal."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    n = 0
+    runs = [(_rlnc_small(d)) for d in (dev, "cpu")]
+    n += _same_coded(runs[0][0], runs[1][0], "rlnc at 2,000")
+    n += _same_channels(runs[0][1], runs[1][1], "rlnc at 2,000")
+    for loss in (("d", 2), ("p", 0.375)):
+        runs = [_hybrid_small(d, loss) for d in (dev, "cpu")]
+        what = f"hybrid {loss[0]}={loss[1]} at 2,000"
+        n += _same_coded(runs[0][0], runs[1][0], what)
+        n += _same_channels(runs[0][1], runs[1][1], what)
+        if int(runs[0][1]["coded_edges"][-1]) == 0:
+            fail(f"{what}: no edge went coded")
+    with tempfile.TemporaryDirectory() as d:
+        engs = [_hybrid_engine_crash(dv, os.path.join(d, f"{i}.ckpt"))
+                for i, dv in enumerate((dev, "cpu"))]
+    (a, ra), (b, rb) = engs
+    n += _same_coded(a.state, b.state, "hybrid engine crash at 2,000")
+    n += _same_channels(a.flight_tail, b.flight_tail, "hybrid engine tail")
+    if (ra != rb or ra["partial"] == 0 or a.completed != b.completed
+            or a.latencies_s != b.latencies_s or a.pending
+            or a.duplicate_completions or a.restores != 1
+            or a.completed != len(a.publish_log)):
+        fail(f"hybrid engine crash at 2,000: card {a.completed} / "
+             f"{len(a.publish_log)} (ranks {ra}), CPU {b.completed} "
+             f"(ranks {rb}), pending {len(a.pending)}, duplicates "
+             f"{a.duplicate_completions}")
+    return dict(n_peers=CODED_SMALL_N, values_compared=n,
+                engine_completed=a.completed, decode_ranks_at_crash=ra,
+                seconds=time.perf_counter() - t0)
+
+
+def _step_split(dev, model, st):
+    """Device ms of one coded round's parts (CUDA events behind a device
+    spin, after a warm call; one timed call of the draw, the encode (draw
+    included), the fold's K x Kg elimination passes and the step, the
+    median of 3 of the hybrid's eager plane (K1) and a heartbeat (K2))."""
+    import torch
+
+    from go_libp2p_pubsub_torch.models.rlnc import draw_block, encode, fold
+    from go_libp2p_pubsub_torch.ops import gf256, rng
+    from go_libp2p_pubsub_torch.ops.graphs import decode_index_plane
+
+    hybrid = hasattr(st, "gossip")
+    g = model.gs._widen_indices(st.gossip) if hybrid else st
+    basis, k = st.basis, model.k
+    key = rng.split(st.key_coded if hybrid else st.key, 2)[0]
+    n, m, kg = basis.shape[0], basis.shape[1], basis.shape[2]
+    blk = draw_block(k, m, kg)
+
+    def draw():
+        for r0 in range(0, n, blk):
+            gf256.coeffs_by_uid(key, (min(blk, n - r0), k, m, kg),
+                                row_offset=r0)
+
+    frag = encode(key, basis, k)
+    j = torch.clamp(decode_index_plane(g.nbrs), 0, n - 1).long()
+    flat_idx = j * k + torch.clamp(decode_index_plane(g.rev), 0, k - 1)
+    ok = (gf256.gf_rank(basis) > 0)[j] & g.edge_live[:, :, None]
+    out = {"draw": _time_ms(draw, reps=1),
+           "encode": _time_ms(lambda: encode(key, basis, k), reps=1),
+           "fold": _time_ms(lambda: fold(basis, frag, flat_idx, ok), reps=1)}
+    if hybrid:
+        accept = torch.ones(n, dtype=torch.bool, device=dev)
+        out["eager"] = _time_ms(lambda: model.gs._propagate(
+            g, eager_edge_ok=~st.coded, ingress_ok=accept), reps=3)
+        out["heartbeat"] = _time_ms(lambda: model.gs._heartbeat(g), reps=3)
+    out["step"] = _time_ms(lambda: model.step(st), reps=1)
+    out["launches_a_step"] = _device_ops(lambda: model.step(st))
+    return out
+
+
+def rlnc_full(dev, card: str):
+    """RLNC at ``RLNC_SCALE``'s widths, scaled from 1,024 to 100,000 peers,
+    main-path style: the signed window verified natively, 128 publishes
+    with the verdicts, a timed ``rollout(24, record=True)`` clean and with
+    a quarter of the peers decimated (delay 2), each under the sync-debug
+    mode; validated msgs/s as ``bench.py:1167`` defines it."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_torch.crypto import native
+    from go_libp2p_pubsub_torch.models.rlnc import RLNC
+
+    rng = np.random.default_rng(1)
+    envs, forged = signed_window(rng)
+    pks = [e.pubkey for e in envs]
+    msgs = [native.signing_bytes(e.topic, e.seqno, e.payload) for e in envs]
+    sigs = [e.signature for e in envs]
+    native.verify_batch(pks[:16], msgs[:16], sigs[:16])
+    t0 = time.perf_counter()
+    verdicts = native.verify_batch(pks, msgs, sigs)
+    verify_s = time.perf_counter() - t0
+    n = HEADLINE["n_peers"]
+    srcs = rng.integers(n, size=N_MSGS)
+    delay = np.zeros(n, np.int32)
+    delay[rng.choice(n, size=round(RLNC_COHORT * n), replace=False)] = \
+        RLNC_DELAY
+    model = RLNC(device=dev, n_peers=n, **RLNC_GEOMETRY)
+    out = {}
+    split = None
+    for arm in ("clean", "degraded"):
+        torch.cuda.reset_peak_memory_stats(dev)
+        st = model.init(0)
+        if arm == "degraded":
+            st = model.set_gossip_delay(st, delay)
+        for slot in range(N_MSGS):
+            st = model.publish(st, int(srcs[slot]), slot,
+                               bool(verdicts[slot]))
+        model.step(st)                                   # warm
+        torch.cuda.synchronize()
+        box = {}
+
+        def timed():
+            t1 = time.perf_counter()
+            box["out"] = model.rollout(st, RLNC_STEPS, record=True)
+            torch.cuda.synchronize()
+            box["s"] = time.perf_counter() - t1
+
+        syncs = _sync_warnings(timed)
+        fin, rec = box["out"]
+        frac, p50, p99 = (x.cpu().numpy() for x in model.delivery_stats(fin))
+        rank = model.rank(fin).cpu().numpy()
+        spread = max(int((rank[:, i] > 0).sum()) for i in forged)
+        if syncs or spread > 1 or not np.isfinite(p50):
+            fail(f"rlnc {arm} at 100k: {syncs} syncs, forged spread "
+                 f"{spread}, p50 {p50}")
+        mean = float(np.nanmean(frac))
+        delivered = float(np.nansum(frac)) * n
+        out[arm] = dict(
+            validated_msgs_per_s=delivered / (box["s"] + verify_s),
+            delivery_mean=mean, p50_rounds=float(p50),
+            p99_rounds=float(p99), rollout_ms=box["s"] * 1e3,
+            steps_per_s=RLNC_STEPS / box["s"], syncs=syncs,
+            forged_spread=spread,
+            peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+        if arm == "clean":
+            if mean < 0.999:
+                fail(f"rlnc clean at 100k: delivery {mean}")
+            split = _step_split(dev, model, model.rollout(st, 2, False)[0])
+        del box, fin, rec
+        torch.cuda.empty_cache()
+    return dict(n_peers=n, **RLNC_GEOMETRY, steps=RLNC_STEPS,
+                verify_ms=verify_s * 1e3, step_split_ms=split, card=card,
+                **out)
+
+
+def _strict_win(a, e) -> bool:
+    """``bench.py``'s rule: more delivered, or equal at a lower p99."""
+    return (a["delivery_mean"] > e["delivery_mean"] + 1e-9
+            or (abs(a["delivery_mean"] - e["delivery_mean"]) <= 1e-9
+                and a["p99_rounds"] < e["p99_rounds"]))
+
+
+def hybrid_full(dev, card: str):
+    """The hybrid at ``HYBRID_SCALE``'s widths, scaled from 256 to 100,000
+    peers: adaptive against its eager-forced twin (switch thresholds above
+    1) over decimation d = 0 ... 3 and Bernoulli p = 0.125 ... 0.625, a
+    timed ``rollout(32)`` each under the sync-debug mode; the d = 0
+    identity leaf for leaf; K1/K2 launches; one round's K1 and one
+    heartbeat's K2 inputs, with coded edges present, against the plain
+    versions."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_torch.models.hybrid import HybridGossipSub
+    from go_libp2p_pubsub_torch.ops import cuda_gossip
+    from go_libp2p_pubsub_torch.ops import gossip_packed as plain
+
+    n = HEADLINE["n_peers"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    ada = HybridGossipSub(device=dev, n_peers=n, **HYBRID_GEOMETRY)
+    twin = HybridGossipSub(device=dev, n_peers=n, switch_hi=2.0,
+                           switch_lo=1.5, **HYBRID_GEOMETRY)
+    st0 = ada.init(0)
+    srcs = np.random.default_rng(3).integers(n, size=32)
+    for slot in range(32):
+        st0 = ada.publish(st0, int(srcs[slot]), slot, True)
+    ada.rollout(st0, 1, record=False)                    # warm
+    torch.cuda.synchronize()
+    rows, dropped, finals, syncs = [], [], {}, 0
+    t0 = time.perf_counter()
+    cuda_gossip.reset_launches()
+    for kind, val in HYBRID_GRID:
+        if time.perf_counter() - t0 > HYBRID_BUDGET_S:
+            dropped.append(f"{kind}={val}")
+            continue
+        st = (ada.set_ingress_loss(st0, val) if kind == "d"
+              else ada.set_ingress_loss_p(st0, val))
+        row = {"loss": kind, "value": val,
+               "loss_frac": val / (val + 1) if kind == "d" else val}
+        for name, model in (("adaptive", ada), ("eager_forced", twin)):
+            box = {}
+
+            def timed():
+                t1 = time.perf_counter()
+                box["st"] = model.rollout(st, HYBRID_STEPS, record=False)[0]
+                torch.cuda.synchronize()
+                box["s"] = time.perf_counter() - t1
+
+            syncs += _sync_warnings(timed)
+            fin = box["st"]
+            frac, p50, p99 = (x.cpu().numpy()
+                              for x in model.delivery_stats(fin))
+            row[name] = dict(
+                delivery_mean=float(np.nanmean(frac)),
+                p50_rounds=float(p50), p99_rounds=float(p99),
+                coded_edges=int((fin.coded & fin.gossip.nbr_valid).sum()),
+                rollout_ms=box["s"] * 1e3)
+            if (kind, val) in (("d", 0), ("d", 2)):
+                finals[(kind, val, name)] = fin
+        row["adaptive_wins"] = _strict_win(row["adaptive"],
+                                           row["eager_forced"])
+        rows.append(row)
+    grid_s = time.perf_counter() - t0
+    runs = 2 * len(rows)
+    launches = {"gossip_propagate": cuda_gossip.propagate.launches,
+                "gossip_exchange": cuda_gossip.exchange_select.launches}
+    want = {"gossip_propagate": runs * HYBRID_STEPS,
+            "gossip_exchange": runs * HYBRID_STEPS // 4}
+    if launches != want:
+        fail(f"the hybrid grid launched {launches}, expected {want}")
+    if syncs:
+        fail(f"the hybrid grid's timed rollouts synchronised {syncs} times")
+    identity = _same_coded(finals[("d", 0, "adaptive")],
+                           finals[("d", 0, "eager_forced")],
+                           "hybrid d=0: adaptive against the eager twin")
+    coded = finals[("d", 2, "adaptive")]
+    if not bool(coded.coded.any()):
+        fail("hybrid d=2 at 100k: no edge went coded")
+    # One round and one heartbeat with coded edges present: the kernels
+    # against their plain versions on the captured inputs.
+    with _Capture() as cap:
+        st = coded
+        for _ in range(4):
+            st = ada.step(st)
+        torch.cuda.synchronize()
+    errs = {}
+    for name, ref_fn in (("propagate", plain.propagate_packed),
+                         ("exchange_select", plain.exchange_select)):
+        if name not in cap.calls:
+            fail(f"the hybrid round never called {name}")
+        args, kw = cap.calls[name]
+        got = getattr(cuda_gossip, name)(*args, **kw)
+        ref = ref_fn(*args, **kw)
+        torch.cuda.synchronize()
+        errs[name] = _max_err(got, ref)
+        if errs[name] != 0.0:
+            fail(f"{name} on the hybrid's inputs: max abs err {errs[name]}")
+    split = _step_split(dev, ada, coded)
+    wins = [r for r in rows if r["adaptive_wins"]]
+    return dict(
+        n_peers=n, **HYBRID_GEOMETRY, steps=HYBRID_STEPS, grid=rows,
+        dropped=dropped, grid_s=grid_s,
+        crossover_loss_frac=min((r["loss_frac"] for r in wins),
+                                default=None),
+        d0_identity_leaves=identity, syncs=syncs, launches=launches,
+        kernel_input_max_abs_err=errs, coded_edges_at_capture=int(
+            (coded.coded & coded.gossip.nbr_valid).sum()),
+        step_split_ms=split,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        card=card), launches
+
+
+def coded_phase(dev, card: str):
+    """Phase 9.  Returns the kernels' launches in the hybrid grid."""
+    import torch
+
+    from go_libp2p_pubsub_torch.ops import cuda_ed25519
+
+    t0 = time.perf_counter()
+    sections = {}
+    cuda_ed25519.reset_launches()
+    for key, section in (("replays", lambda: coded_replays(dev)),
+                         ("card_equals_cpu", lambda: coded_small(dev)),
+                         ("rlnc_100k", lambda: rlnc_full(dev, card))):
+        t1 = time.perf_counter()
+        sections[key] = section()
+        torch.cuda.empty_cache()
+        print(f"coded {key}: {time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    sections["hybrid_100k"], launches = hybrid_full(dev, card)
+    print(f"coded hybrid_100k: {time.perf_counter() - t1:.1f} s", flush=True)
+    launches["ed25519_verify"] = cuda_ed25519.verify.launches
+    emit(dict(phase="coded", seconds=time.perf_counter() - t0, card=card,
+              **sections))
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -2334,12 +2813,14 @@ def main() -> None:
     scenario_launches = scenario_phase(dev, card)
     serve_launches, streaming_launches = serve_phase(dev, card)
     tree_launches = tree_phase(dev, card)
+    coded_launches = coded_phase(dev, card)
     for r in records:
         r["launches"] = launches[r["name"]]
         r["launches_scenario"] = scenario_launches[r["name"]]
         r["launches_serve"] = serve_launches[r["name"]]
         r["launches_streaming"] = streaming_launches[r["name"]]
         r["launches_tree"] = tree_launches[r["name"]]
+        r["launches_coded"] = coded_launches[r["name"]]
         emit(dict(phase="kernel", **r))
     emit({"kernels": records})
     print(card, flush=True)

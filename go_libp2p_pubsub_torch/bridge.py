@@ -1,8 +1,8 @@
 """State and parameter bridge between the JAX package and the port.
 
-A JAX ``GossipState``, ``MultiTopicState``, ``TreeState``, ``FloodState``
-or ``RandomSubState`` (any NamedTuple with its fields, leaves as numpy or
-JAX arrays) converts into the port's state of the same name and back
+A JAX ``GossipState``, ``MultiTopicState``, ``TreeState``, ``FloodState``,
+``RandomSubState``, ``RLNCState`` or ``HybridState`` (any NamedTuple with
+its fields, leaves as numpy or JAX arrays) converts into the port's state of the same name and back
 through numpy, without importing JAX: it is how both sides start from one
 state, and how the streaming engine's snapshots keep the reference's file
 format.
@@ -26,14 +26,17 @@ import torch
 from .config import GossipSubParams, ScoreParams
 from .models.floodsub import FloodState
 from .models.gossipsub import GossipState, resolve_device
+from .models.hybrid import HybridState
 from .models.multitopic import MultiTopicState
 from .models.randomsub import RandomSubState
+from .models.rlnc import RLNCState
 from .ops.tree import TreeState
 from .ops.scoring import GlobalCounters, TopicCounters
 
 # Leaves the JAX package stores as uint32 and the port as int32 patterns.
 U32_FIELDS = frozenset({"have_w", "fresh_w", "gossip_pend_w", "iwant_pend_w",
-                        "fresh_hist", "key", "keys"})
+                        "fresh_hist", "key", "keys", "key_coded",
+                        "key_loss"})
 _NESTED = {"counters": TopicCounters, "gcounters": GlobalCounters}
 
 
@@ -95,6 +98,23 @@ def flood_state_from_jax(st: Any, device="cuda"):
     return _from_jax(cls, st, device)
 
 
+def rlnc_state_from_numpy(st: Any, device="cuda") -> RLNCState:
+    """Reference ``RLNCState`` (or its numpy form) -> the port's, on
+    ``device`` (the card by default; raises without one)."""
+    return _from_jax(RLNCState, st, device)
+
+
+def hybrid_state_from_numpy(st: Any, device="cuda") -> HybridState:
+    """Reference ``HybridState`` (or its numpy form) -> the port's, on
+    ``device``: the embedded ``GossipState`` as :func:`state_from_jax`
+    converts it, the coded plane's keys as int32 bit patterns."""
+    device = resolve_device(device)
+    return HybridState(**{
+        name: (_from_jax(GossipState, st.gossip, device) if name == "gossip"
+               else _to_torch(name, getattr(st, name), device))
+        for name in HybridState._fields})
+
+
 def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
     a = t.detach().cpu().numpy()
     if name in U32_FIELDS:
@@ -153,3 +173,28 @@ def multitopic_state_spec(st: MultiTopicState) -> MultiTopicState:
     """The numpy form's shapes and dtypes without reading the device: each
     leaf an uninitialised array (a checkpoint restore's template)."""
     return _numpy_of(st, _spec)
+
+
+def rlnc_state_to_numpy(st: RLNCState) -> RLNCState:
+    """The port's ``RLNCState`` -> numpy leaves in the reference's dtypes
+    (the uint32 key, ``step`` as int32)."""
+    return _numpy_of(st)
+
+
+def _hybrid_numpy(st: HybridState, leaf_fn) -> HybridState:
+    return HybridState(**{
+        name: (_numpy_of(st.gossip, leaf_fn) if name == "gossip"
+               else leaf_fn(name, getattr(st, name)))
+        for name in HybridState._fields})
+
+
+def hybrid_state_to_numpy(st: HybridState) -> HybridState:
+    """The port's ``HybridState`` -> numpy leaves in the reference's dtypes
+    (uint32 windows and keys, the gossip ``step`` as int32)."""
+    return _hybrid_numpy(st, _to_numpy)
+
+
+def hybrid_state_spec(st: HybridState) -> HybridState:
+    """:func:`hybrid_state_to_numpy`'s shapes and dtypes without reading
+    the device (a checkpoint restore's template)."""
+    return _hybrid_numpy(st, _spec)

@@ -911,15 +911,27 @@ class GossipSub:
             key=knext,
         )
 
-    def _propagate(self, st: GossipState, with_receipts: bool = False):
+    def _propagate(self, st: GossipState, with_receipts: bool = False,
+                   eager_edge_ok: Optional[torch.Tensor] = None,
+                   ingress_ok: Optional[torch.Tensor] = None):
         # Fold due gossip/flood transfers into this round's receipts (they
         # relay next round), then the eager push over the graylist-gated
         # mesh (kernel K1 on CUDA).
+        #
+        # The hybrid's hooks (models/hybrid.py), where the reference places
+        # them: ``eager_edge_ok`` bool[N, K] narrows the relay mask K1 reads
+        # (coded edges do not eager-push); ``ingress_ok`` bool[N] is a
+        # per-receiver loss gate that drops a closed receiver's whole
+        # data-plane ingress (the pend fold and K1's arrivals, which are
+        # masked after the kernel).  Both None: the operations of the plain
+        # model.
         ready = st.pend_hold <= 0
         ready_w = as_mask(ready)[:, None]
         gossip_new = (
             st.gossip_pend_w & ready_w & ~st.have_w & as_mask(st.alive)[:, None]
         )
+        if ingress_ok is not None:
+            gossip_new = gossip_new & as_mask(ingress_ok)[:, None]
         held_w = st.gossip_pend_w & ~ready_w
         have_w = st.have_w | gossip_new
 
@@ -931,6 +943,8 @@ class GossipSub:
         if self.direct_edges is not None:
             relay_mesh = relay_mesh | (
                 self.direct_edges & st.subscribed[:, None])
+        if eager_edge_ok is not None:
+            relay_mesh = relay_mesh & eager_edge_ok
         valid_w = bitpack.pack(st.msg_valid & st.msg_active)
         # Per-edge delay: each edge reads its sender's fresh plane from
         # edge_delay rounds back, (step - 1 - d) mod D of the history.
@@ -952,6 +966,20 @@ class GossipSub:
             st.fresh_w, valid_w, fresh_src=fresh_src, idontwant=idontwant,
             idw_have_w=idw,
         )
+        if ingress_ok is not None:
+            # A closed receiver's eager arrivals are dropped: no possession,
+            # no relay, no score credit.  ``have_w`` going into K1 already
+            # holds the gated pend fold, so possession rebuilds exactly.
+            iok_w = as_mask(ingress_ok)[:, None]
+            iok_f = ingress_ok.to(torch.float32)[:, None]
+            out = out._replace(
+                have_w=have_w | (out.new_w & iok_w & valid_w),
+                fresh_w=out.fresh_w & iok_w,
+                new_w=out.new_w & iok_w,
+                fmd_inc=out.fmd_inc * iok_f,
+                mmd_inc=out.mmd_inc * iok_f,
+                invalid_inc=out.invalid_inc * iok_f,
+            )
         # One stamping pass for both receipt sources (same step).
         stamped = (
             bitpack.unpack(gossip_new | out.new_w, self.m)

@@ -14,7 +14,9 @@ score means of ``GossipSub.rollout_events``): zeros add nothing to a
 sequential f32 sum, so the sum of an array whose non-zero entries are
 known (flat index and value) follows the same tree over those entries
 alone.  Host numpy; checked against ``jnp.sum`` under ``jax.jit`` in the
-tests.
+tests.  :func:`xla_sum` takes the same tree over a dense tensor on its
+device (the hybrid's mean loss estimate): one add per window position,
+each across all the windows of a level at once.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
 
 WINDOW = 32
 
@@ -85,3 +88,36 @@ def masked_mean(shape: Sequence[int], flat_idx, vals, count: int):
     if count <= 0:
         return np.float32(np.nan)
     return np.float32(sparse_sum(shape, flat_idx, vals) / np.float32(count))
+
+
+def _seq_cols(x: torch.Tensor) -> torch.Tensor:
+    """Sequential f32 sums from 0.0 of the rows of ``x`` [R, C], column
+    by column."""
+    acc = torch.zeros(x.shape[0], dtype=torch.float32, device=x.device)
+    for c in range(x.shape[1]):
+        acc = acc + x[:, c]
+    return acc
+
+
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """0-d f32 sum of the dense f32 tensor ``x`` in the reference's XLA
+    CPU order (the tree of :func:`sparse_sum`), on ``x``'s device."""
+    x = x.to(torch.float32)
+    while any(d >= WINDOW for d in x.shape):
+        nd = x.ndim
+        parts, outer = [], []
+        for a, d in enumerate(x.shape):
+            if d >= WINDOW:
+                pad = -d % WINDOW
+                if pad:
+                    before = [0] * (2 * (nd - a - 1)) + [pad // 2, pad - pad // 2]
+                    x = torch.nn.functional.pad(x, before)
+                parts.append(((d + pad) // WINDOW, WINDOW))
+            else:
+                parts.append((1, d))
+            outer.append(parts[-1][0])
+        x = x.reshape([v for p in parts for v in p])
+        x = x.permute(list(range(0, 2 * nd, 2)) + list(range(1, 2 * nd, 2)))
+        n_out = int(np.prod(outer))
+        x = _seq_cols(x.reshape(n_out, -1)).reshape(outer)
+    return _seq_cols(x.reshape(1, -1))[0]

@@ -1,7 +1,8 @@
 """Scenario compiler: lower a :class:`ScenarioSpec` to event tensors.
 
 The JAX package's ``scenario/compiler.py`` for the ``gossipsub``,
-``multitopic`` and ``treecast`` families, in the port.  The lowering is
+``multitopic``, ``treecast``, ``rlnc`` and ``hybrid`` families, in the
+port.  The lowering is
 a pure host-side function of the spec: every random draw (churn
 victims, workload publishers, link cohorts) comes from a
 ``np.random.default_rng([seed, tag, index])`` substream, so the same
@@ -13,18 +14,19 @@ one ``ops.schedule.GossipEvents`` (``MultiTopicEvents`` for the
 multitopic family, ``TreeEvents`` for treecast) of host numpy rows whose
 leading axis is the step of the model's ``rollout_events``.  Multitopic
 lowers only the ``spam``/``promise_spam``/``sybil`` attack kinds and
-refuses graceful churn, fault leaves and rejoins, as the reference does.
+refuses graceful churn, fault leaves and rejoins, as the reference does;
+rlnc lowers no attack wave (it has no mesh or score plane) and its link
+windows install ingress decimation; the hybrid is streaming-only.
 
 The state surgery of the attack waves (sybil ``ip_group``, the cold-boot
 mesh and counter rewrite, the eclipse attacker draw) reads the state back
 to numpy exactly as the reference does, and puts it back on the model's
 device in the state's storage dtypes.
 
-``compile_streaming_plan`` lowers a ``multitopic`` spec for the serving
-plane (a host publish timeline, the fault stages and the controller
-ladder), as the reference does.  The coded families (``rlnc``,
-``hybrid``) are not ported yet and raise ``NotImplementedError`` naming
-their ROADMAP item, on both planes.
+``compile_streaming_plan`` lowers a ``multitopic`` or ``hybrid`` spec for
+the serving plane (a host publish timeline, the fault stages, the
+controller ladder, and the hybrid's loss windows, oscillation, regimes
+and eager twin), as the reference does.
 """
 
 from __future__ import annotations
@@ -43,13 +45,6 @@ from .spec import ScenarioSpec
 # Substream tags: each spec component draws from its own child stream, so
 # adding/removing one component never shifts another's randomness.
 _TAG_WORKLOAD, _TAG_CHURN, _TAG_LINK, _TAG_ATTACK = 1, 2, 3, 4
-
-# The families the port does not run yet, with the ROADMAP item that
-# ports each one.
-_NOT_PORTED = {
-    "rlnc": "ROADMAP A9 (coded plane)",
-    "hybrid": "ROADMAP A9 (coded plane)",
-}
 
 
 @dataclasses.dataclass
@@ -79,11 +74,8 @@ def _split_model_kwargs(spec: ScenarioSpec) -> Dict[str, Any]:
 
 
 def _check_family(spec: ScenarioSpec) -> None:
-    if spec.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {spec.family} family is not ported yet: "
-            f"{_NOT_PORTED[spec.family]}")
-    if spec.family not in ("gossipsub", "multitopic", "treecast"):
+    if spec.family not in ("gossipsub", "multitopic", "treecast", "rlnc",
+                           "hybrid"):
         raise ValueError(f"unknown scenario family {spec.family!r}")
 
 
@@ -98,6 +90,18 @@ def build_model(spec: ScenarioSpec, graft_spammers=None, device="cuda"):
         if graft_spammers is not None:
             raise ValueError("graft_spam waves are gossipsub-only")
         return MultiTopicGossipSub(device=device, **_split_model_kwargs(spec))
+    if spec.family in ("rlnc", "hybrid"):
+        if "topology" in spec.model:
+            raise ValueError("model topology dicts are gossipsub-only")
+        if graft_spammers is not None:
+            raise ValueError("graft_spam waves are gossipsub-only")
+        if spec.family == "rlnc":
+            from ..models.rlnc import RLNC
+
+            return RLNC(device=device, **dict(spec.model))
+        from ..models.hybrid import HybridGossipSub
+
+        return HybridGossipSub(device=device, **_split_model_kwargs(spec))
     if spec.family == "treecast":
         # Model kwargs split into SimParams / TreeOpts fields.
         from ..models.treecast import TreeCast
@@ -158,6 +162,13 @@ def _window(start: int, stop: Optional[int], n_steps: int) -> Tuple[int, int]:
 def compile_scenario(spec: ScenarioSpec, device="cuda") -> CompiledScenario:
     """Lower ``spec`` -> (model on ``device``, initialized state, events)."""
     _check_family(spec)
+    if spec.family == "hybrid":
+        # The hybrid's closed-sim surface speaks the streaming engine's
+        # chunk dialect; its campaigns run through compile_streaming_plan.
+        raise ValueError(
+            "hybrid family is streaming-only (set "
+            'streaming={"streaming_only": True, ...})'
+        )
     if spec.family == "treecast":
         return _compile_tree(spec, device)
     return _compile_gossip_like(spec, device)
@@ -169,6 +180,12 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 def _compile_gossip_like(spec: ScenarioSpec, device) -> CompiledScenario:
     T, multitopic = spec.n_steps, spec.family == "multitopic"
+    rlnc = spec.family == "rlnc"
+    if rlnc and spec.attacks:
+        raise ValueError(
+            "attack waves are not lowered for rlnc (no mesh/score plane "
+            "to eclipse, spam or graft against)"
+        )
 
     # -- model + state (eclipse needs the converged mesh, so init first;
     #    graft_spam rebinds the constructor and re-inits with the same seed,
@@ -374,7 +391,8 @@ def _compile_gossip_like(spec: ScenarioSpec, device) -> CompiledScenario:
                 events.promo_off[stop] |= wa
                 events.mute_off[stop] |= wa
 
-    if not multitopic and events.silence.any() and model.max_edge_delay:
+    if not multitopic and not rlnc and events.silence.any() \
+            and model.max_edge_delay:
         raise ValueError(
             "eclipse silence requires the ideal eager fabric "
             "(max_edge_delay == 0): squelching fresh_w would desync the "
@@ -718,9 +736,7 @@ def compile_streaming_plan(spec: ScenarioSpec) -> StreamingPlan:
     """Lower ``spec`` for the streaming plane.
 
     Honest support matrix: only the ``multitopic`` and ``hybrid`` families
-    have a resident engine (the port runs ``multitopic``; ``hybrid``
-    raises ``NotImplementedError`` naming its ROADMAP item), and the
-    serving plane lowers WORKLOADS only —
+    have a resident engine, and the serving plane lowers WORKLOADS only —
     churn, attack and link windows mutate device event tensors mid-scan,
     which the fixed-shape resident chunk deliberately does not carry
     (publishes and, on the hybrid plane, the per-chunk ingress-loss stamp
@@ -731,11 +747,6 @@ def compile_streaming_plan(spec: ScenarioSpec) -> StreamingPlan:
         raise ValueError(
             f"streaming plane requires the multitopic or hybrid family, "
             f"got {spec.family!r}"
-        )
-    if spec.family == "hybrid":
-        raise NotImplementedError(
-            f"the hybrid streaming plane is not ported yet: "
-            f"{_NOT_PORTED['hybrid']}"
         )
     if spec.churn or spec.attacks or spec.links or spec.faults:
         raise ValueError(

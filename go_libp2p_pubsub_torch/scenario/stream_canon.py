@@ -1,5 +1,5 @@
-"""The canon's multitopic streaming campaigns under a stepping clock, and
-their committed trace.
+"""The canon's streaming campaigns (the multitopic ones and the coded
+hybrid's) under a stepping clock, and their committed trace.
 
 ``capture`` runs one campaign through a streaming runner with the
 runner's ``_SkewClock`` replaced by :class:`SteppingSkewClock` (a clock
@@ -34,6 +34,13 @@ CAMPAIGNS = (
     "streaming_engine_crash_recovery",
     "streaming_verifier_crash",
 )
+# The hybrid plane's campaigns (ingress-loss windows, the eager twin, a
+# crash mid-decode, the controller under loss regimes).
+HYBRID_CAMPAIGNS = (
+    "streaming_degraded_links",
+    "streaming_rlnc_crash_recovery",
+    "streaming_drifting_load",
+)
 CLOCK_STEP_S = 0.001
 # Channels and criteria the runner times with time.monotonic.
 TIMED = ("recovery_s",)
@@ -44,6 +51,7 @@ STATS = (
     "rejected_pushes", "admitted_valid", "restores", "replayed",
     "replay_deduped", "duplicate_completions", "clock_anomalies",
     "snapshots_taken", "pipeline_restarts", "watchdog_restarts", "pipeline",
+    "eager_completed",
 )
 
 
@@ -149,27 +157,28 @@ def load_trace(path: str = TRACE_PATH) -> Dict[str, Any]:
 
 def write_trace(runner, engine_cls, build,
                 path: str = TRACE_PATH) -> Dict[str, Any]:
-    """Capture every campaign of ``CAMPAIGNS`` (``build(name)`` gives the
-    spec) through ``runner`` and write the trace document."""
+    """Capture every campaign of ``CAMPAIGNS`` and ``HYBRID_CAMPAIGNS``
+    (``build(name)`` gives the spec) through ``runner`` and write the trace
+    document."""
     doc = {"trace_version": 1, "clock_step_s": CLOCK_STEP_S,
            "campaigns": {name: capture(runner, engine_cls, build(name))[0]
-                         for name in CAMPAIGNS}}
+                         for name in CAMPAIGNS + HYBRID_CAMPAIGNS}}
     with open(path, "w") as f:
         json.dump(doc, f, sort_keys=True, separators=(",", ":"))
         f.write("\n")
     return doc
 
 
-def port_replay(device="cuda", doc: Optional[Dict[str, Any]] = None
-                ) -> Dict[str, List[str]]:
-    """The port's runner on ``device`` through every campaign of the trace
-    -> the mismatches of each (empty lists when it reproduces the
-    trace)."""
+def port_replay(device="cuda", doc: Optional[Dict[str, Any]] = None,
+                names=CAMPAIGNS) -> Dict[str, List[str]]:
+    """The port's runner on ``device`` through the trace's campaigns
+    ``names`` (the multitopic ones by default) -> the mismatches of each
+    (empty lists when it reproduces the trace)."""
     from ..serve import StreamingEngine
     from . import canon, streaming_runner
 
     doc = load_trace() if doc is None else doc
     return {name: mismatches(
                 capture(streaming_runner, StreamingEngine, canon.build(name),
-                        device=device)[0], ref)
-            for name, ref in doc["campaigns"].items()}
+                        device=device)[0], doc["campaigns"][name])
+            for name in names}

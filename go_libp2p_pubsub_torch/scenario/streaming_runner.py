@@ -1,10 +1,9 @@
 """Streaming-plane scenario execution: spec timeline → ring → resident engine.
 
 The JAX package's ``scenario/streaming_runner.py`` in the port, for the
-``multitopic`` family on ``device`` (the card by default).  The hybrid
-plane's arms (the per-chunk ingress-loss windows and the eager twin) wait
-for the coded plane (ROADMAP A9): ``compile_streaming_plan`` refuses a
-hybrid spec, so no plan reaches them.
+``multitopic`` and ``hybrid`` families on ``device`` (the card by
+default), the hybrid plane's arms included: the per-chunk ingress-loss
+windows, the oscillation and the step-keyed regimes, and the eager twin.
 
 The sim plane lowers a campaign to event tensors and runs ONE scan; the
 streaming plane replays the same declarative workloads as an *open* stream:
@@ -205,6 +204,30 @@ def run_streaming_scenario(
     except Exception as e:
         raise StreamingPlaneError(f"engine warmup failed: {e}") from e
 
+    # Degraded-link window (r16, hybrid plane): the stamp is re-asserted
+    # before EVERY chunk off the runner's own monotone chunk counter, so a
+    # staged crash (which rewinds the engine's chunk count) cannot shift
+    # the window, and the post-window / drain chunks run on clean fabric.
+    loss_w = faults.get("loss")
+    # Hysteresis-oscillation window (r21): same monotone-counter stamping
+    # discipline, but the delay flips lossy/clean every period_chunks
+    # inside the window (starting lossy) — the adversary straddling the
+    # hybrid's switch_hi/switch_lo band.
+    osc_w = faults.get("loss_oscillate")
+
+    def _stamp_loss(eng, ci: int) -> None:
+        if osc_w is not None:
+            inside = osc_w["start_chunk"] <= ci < osc_w["stop_chunk"]
+            lossy = inside and (
+                (ci - osc_w["start_chunk"]) // osc_w["period_chunks"]
+            ) % 2 == 0
+            eng.set_ingress_delay(osc_w["delay"] if lossy else 0)
+            return
+        if loss_w is None:
+            return
+        inside = loss_w["start_chunk"] <= ci < loss_w["stop_chunk"]
+        eng.set_ingress_delay(loss_w["delay"] if inside else 0)
+
     # r20 drifting-workload regimes: STEP-keyed windows (so a controller
     # switching geometries and a static twin see the loss start and stop at
     # the same timeline steps), stamped off the chunk's FIRST step before
@@ -354,6 +377,7 @@ def run_streaming_scenario(
                     pipe.submit(env, ctx=ctx)
         pipe.flush()
         depth_series.append(holder["ring"].depth)
+        _stamp_loss(engine, chunk_index)
         _stamp_regime(engine, base)
         engine.run_chunk()
         chunk_index += 1
@@ -408,11 +432,80 @@ def run_streaming_scenario(
             controller.poll()
         base += steps_this
 
+    _stamp_loss(engine, chunk_index)  # drain runs on clean fabric
     _stamp_regime(engine, T)
     engine.run_until_drained(max_chunks=max_drain_chunks)
     acct = ring.accounting()
     lats = engine.latencies_s
     q = engine.latency_quantiles()
+
+    # compare_eager (r16): replay the SAME timeline and loss windows through
+    # an eager-forced twin — the identical hybrid model with switch
+    # thresholds above 1.0, so loss_ewma (a probability) can never cross
+    # them and every edge stays on the eager plane.  The twin is a perf
+    # baseline, not a crypto exercise: publishes go straight to its ring
+    # with the spec's validity bit (the main run already proved the
+    # pipeline produces those verdicts), and crash/verifier faults are NOT
+    # replayed — the ratio isolates the coding gain under loss.
+    eager_p99 = float("nan")
+    eager_completed = 0
+    p99_ratio = float("nan")
+    if plan.compare_eager:
+        from ..serve import IngestRing as _Ring
+        from ..serve import StreamingEngine as _Engine
+
+        eager_spec = dataclasses.replace(
+            spec,
+            model={**dict(spec.model), "switch_hi": 2.0, "switch_lo": 1.5},
+        )
+        try:
+            eager_model = build_model(eager_spec, device=device)
+        except Exception as e:
+            raise StreamingPlaneError(
+                f"eager twin model build failed: {e}"
+            ) from e
+        ering = _Ring(
+            capacity=plan.capacity, policy=plan.policy, clock=clock
+        )
+        eeng = _Engine(
+            eager_model,
+            ering,
+            chunk_steps=plan.chunk_steps,
+            pub_width=plan.pub_width,
+            completion_frac=plan.completion_frac,
+            seed=spec.seed,
+            clock=clock,
+        )
+        try:
+            eeng.warmup()
+        except Exception as e:
+            raise StreamingPlaneError(
+                f"eager twin warmup failed: {e}"
+            ) from e
+        eseq = 0
+        eci = 0
+        for base in range(0, T, plan.chunk_steps):
+            for t in range(base, min(base + plan.chunk_steps, T)):
+                for topic, src, valid in plan.timeline[t]:
+                    ering.push(
+                        topic=topic, payload=b"stream-%d" % eseq,
+                        publisher=src, valid=valid, timeout=5.0,
+                    )
+                    eseq += 1
+            _stamp_loss(eeng, eci)
+            eeng.run_chunk()
+            eci += 1
+        _stamp_loss(eeng, eci)
+        eeng.run_until_drained(max_chunks=max_drain_chunks)
+        eager_p99 = eeng.latency_quantiles()["p99"]
+        eager_completed = eeng.completed
+        if eager_completed < engine.completed:
+            # Eager never finished messages the hybrid delivered: its tail
+            # is unboundedly worse.  Report 0.0 so a max-ratio SLO passes
+            # (NaN would fail closed and hide the win).
+            p99_ratio = 0.0
+        elif eager_p99 > 0.0 and np.isfinite(eager_p99):
+            p99_ratio = q["p99"] / eager_p99
 
     # compare_static (r20): the self-tuned-vs-best-static A/B.  One twin
     # per ladder rung replays the SAME timeline under the SAME step-keyed
@@ -542,6 +635,9 @@ def run_streaming_scenario(
             [engine.duplicate_completions], np.int64
         ),
     }
+    if plan.compare_eager:
+        record["eager_p99_s"] = np.asarray([eager_p99], np.float64)
+        record["p99_vs_eager_ratio"] = np.asarray([p99_ratio], np.float64)
     if plan.controller is not None:
         record["controller_decisions"] = np.asarray(
             [len(controller.decisions)], np.int64
@@ -630,6 +726,7 @@ def run_streaming_scenario(
                 watchdog.engine_restarts if watchdog is not None else 0
             ),
             "recovery_s_list": list(recovery_s_list),
+            "eager_completed": eager_completed,
             "pipeline": dict(pipe.stats),
             "trace_out": trace_out,
             "trace_summary": trace_summary,

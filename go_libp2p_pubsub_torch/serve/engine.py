@@ -6,10 +6,16 @@ lanes, padded with the schedule's ``-1`` sentinels), and every chunk runs
 the same prepared program on freshly filled rows; the multi-topic state
 stays on the device from chunk to chunk.
 
+The model speaks the reference's engine dialect: a
+``MultiTopicGossipSub``, or the coded hybrid (``HybridGossipSub``, T = 1),
+whose ``stream_model_key`` fingerprints its checkpoints and whose
+``decode_rank_summary`` goes into each snapshot's meta as
+``decode_ranks``.
+
 Where the reference jits one donated-state rollout per model value, the
 port keeps a module-level cache of **prepared chunk programs**
-(``_ChunkProgram``), keyed on the model's value (``MultiTopicGossipSub``
-has value ``__eq__``/``__hash__``) and on the geometry.  A program holds
+(``_ChunkProgram``), keyed on the model's value (both models have value
+``__eq__``/``__hash__``) and on the geometry.  A program holds
 its geometry's staging buffers for the event rows (pinned host memory and
 their device copies on a card) and runs the model's event path for one
 chunk.  ``compile_cache_size()`` counts this model's programs: the ladder
@@ -24,7 +30,9 @@ boundaries (rounded up to the boundary where the delivered count crossed
 the completion threshold).  Each chunk reads the device twice: the digest
 (one int32 tensor: per-slot delivered counts and per-topic participants)
 and the flight-recorder tail (the last round's telemetry, packed into one
-int32 tensor).  Nothing else in a chunk waits on the device.
+int32 tensor; the hybrid's is the last round of its recorded chunk, the
+reference's tail, with its latency histogram carried from the chunk's
+start).  Nothing else in a chunk waits on the device.
 
 Crash safety: ``snapshot()`` writes the state and the flight tail with
 the reference's file format (``utils/checkpoint``: leaves under the
@@ -54,16 +62,32 @@ import numpy as np
 import torch
 
 from .. import bridge
-from ..models.multitopic import EVENT_ROWS, MultiTopicGossipSub, fires
+from ..models.hybrid import HybridGossipSub
+from ..models.multitopic import EVENT_ROWS, fires
 from ..obs.spans import content_hash  # re-exported
 from ..ops import schedule as sched
 from ..utils import checkpoint as ckpt
 from .ingest import IngestItem, IngestRing
 from .tuning import ChunkGeometry, validate_ladder
 
-# The flight tail's channels in the packed read's order (lat_hist last).
-_TAIL_I32 = ("peers_alive", "gossip_pending")
-_TAIL_F32 = ("delivery_frac", "mesh_degree_mean")
+
+def _state_to_numpy(st):
+    """The engine state -> the reference's numpy form (checkpoint leaves)."""
+    if isinstance(st, bridge.HybridState):
+        return bridge.hybrid_state_to_numpy(st)
+    return bridge.multitopic_state_to_numpy(st)
+
+
+def _state_spec(st):
+    if isinstance(st, bridge.HybridState):
+        return bridge.hybrid_state_spec(st)
+    return bridge.multitopic_state_spec(st)
+
+
+def _state_from_numpy(st, device):
+    if isinstance(st, bridge.HybridState):
+        return bridge.hybrid_state_from_numpy(st, device=device)
+    return bridge.multitopic_state_from_jax(st, device=device)
 
 
 class _ChunkProgram:
@@ -71,8 +95,7 @@ class _ChunkProgram:
     model's event path with up to ``pub_width`` publishes a round, and the
     staging buffers its event rows go through to the device."""
 
-    def __init__(self, model: MultiTopicGossipSub, chunk_steps: int,
-                 pub_width: int):
+    def __init__(self, model, chunk_steps: int, pub_width: int):
         self.model = model
         self.chunk_steps, self.pub_width = chunk_steps, pub_width
         dev = model.device
@@ -105,6 +128,8 @@ class _ChunkProgram:
                 self._host[name].numpy()[:] = plane
                 if self._dev[name] is not self._host[name]:
                     self._dev[name].copy_(self._host[name], non_blocking=True)
+        if isinstance(self.model, HybridGossipSub):
+            return self.model.stream_chunk(state, events, rows=self)
         st, _ = self.model.rollout_events(state, events, record=False,
                                           rows=self)
         return st, self.model.flight_record_round(st)
@@ -113,12 +138,10 @@ class _ChunkProgram:
 # The prepared programs, per (model value, geometry): shared process-wide
 # so a fresh engine over an equal model (the crash-restart path) prepares
 # nothing.
-_PROGRAMS: Dict[Tuple[MultiTopicGossipSub, Tuple[int, int]],
-                _ChunkProgram] = {}
+_PROGRAMS: Dict[Tuple[object, Tuple[int, int]], _ChunkProgram] = {}
 
 
-def _program(model: MultiTopicGossipSub, chunk_steps: int,
-             pub_width: int) -> _ChunkProgram:
+def _program(model, chunk_steps: int, pub_width: int) -> _ChunkProgram:
     key = (model, (chunk_steps, pub_width))
     prog = _PROGRAMS.get(key)
     if prog is None:
@@ -129,6 +152,24 @@ def _program(model: MultiTopicGossipSub, chunk_steps: int,
 def _read(t: torch.Tensor) -> np.ndarray:
     """One device -> host read (a synchronising copy on a card)."""
     return t.cpu().numpy()
+
+
+def _read_tail(tail: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The flight tail's device channels (int32 and float32 scalars, the
+    int32 histogram) -> host numpy, in one int32 read."""
+    names = sorted(tail)
+    flat = [tail[k].reshape(-1) for k in names]
+    packed = _read(torch.cat([
+        v.view(torch.int32) if v.dtype == torch.float32
+        else v.to(torch.int32) for v in flat]))
+    out, i = {}, 0
+    for k, v in zip(names, flat):
+        part = packed[i:i + v.numel()]
+        i += v.numel()
+        if v.dtype == torch.float32:
+            part = part.view(np.float32)
+        out[k] = part.reshape(tuple(tail[k].shape)).copy()
+    return out
 
 
 @dataclasses.dataclass
@@ -146,7 +187,8 @@ class PendingMessage:
 
 
 class StreamingEngine:
-    """Resident chunked rollout over a :class:`MultiTopicGossipSub`.
+    """Resident chunked rollout over a :class:`MultiTopicGossipSub` (or
+    the coded :class:`HybridGossipSub`).
 
     ``run_chunk`` pops up to ``chunk_steps * pub_width`` ring items, packs
     them into a fixed-shape ``MultiTopicEvents`` (publishes spread
@@ -155,7 +197,7 @@ class StreamingEngine:
 
     def __init__(
         self,
-        model: MultiTopicGossipSub,
+        model,
         ring: IngestRing,
         chunk_steps: int = 8,
         pub_width: int = 4,
@@ -357,7 +399,12 @@ class StreamingEngine:
 
     def _model_key(self) -> str:
         """Config fingerprint stored in checkpoint meta (the reference's
-        string, so snapshots cross between the packages)."""
+        string, so snapshots cross between the packages): the model's own
+        ``stream_model_key`` where it has one (the coded hybrid), else the
+        multitopic form."""
+        fn = getattr(self.model, "stream_model_key", None)
+        if fn is not None:
+            return fn()
         m = self.model
         return (
             f"multitopic t={m.t} n={m.n} k={m.k} m={m.m} w={m.w} "
@@ -365,7 +412,7 @@ class StreamingEngine:
         )
 
     def _checkpoint_tree(self) -> dict:
-        return {"state": bridge.multitopic_state_to_numpy(self.state),
+        return {"state": _state_to_numpy(self.state),
                 "flight_tail": dict(self.flight_tail)}
 
     def snapshot(self, path: Optional[str] = None) -> str:
@@ -414,6 +461,12 @@ class StreamingEngine:
         }
         if self.tracer is not None:
             meta["spans"] = self.tracer.snapshot()
+        # Coded models record their decode progress: partial ranks were
+        # checkpointed mid-generation, not just full decodes.
+        rank_fn = getattr(self.model, "decode_rank_summary", None)
+        if rank_fn is not None:
+            meta["decode_ranks"] = {
+                k: int(v) for k, v in rank_fn(self.state).items()}
         ckpt.save(path, self._checkpoint_tree(), meta=meta)
         self.snapshots_taken += 1
         self.snapshot_seconds += time.monotonic() - t0
@@ -463,10 +516,9 @@ class StreamingEngine:
                     "would break the pre-warmed-programs contract"
                 )
         tree = ckpt.restore(path, {
-            "state": bridge.multitopic_state_spec(self.state),
+            "state": _state_spec(self.state),
             "flight_tail": dict(self.flight_tail)})
-        self.state = bridge.multitopic_state_from_jax(
-            tree["state"], device=self.model.device)
+        self.state = _state_from_numpy(tree["state"], self.model.device)
         self.flight_tail = {k: np.asarray(v)
                             for k, v in tree["flight_tail"].items()}
         self.completion_frac = float(meta["completion_frac"])
@@ -616,16 +668,8 @@ class StreamingEngine:
         )
         # Flight-recorder tail: the chunk's last round of each telemetry
         # channel, packed into one int32 read.
-        packed = _read(torch.cat(
-            [torch.stack([tail[k] for k in _TAIL_I32]),
-             torch.stack([tail[k] for k in _TAIL_F32]).view(torch.int32),
-             tail["lat_hist"]]))
-        self.flight_tail = {"step": np.asarray(step, np.int32)}
-        for i, k in enumerate(_TAIL_I32):
-            self.flight_tail[k] = packed[i].copy()
-        for i, k in enumerate(_TAIL_F32):
-            self.flight_tail[k] = packed[len(_TAIL_I32) + i].view(np.float32)
-        self.flight_tail["lat_hist"] = packed[len(_TAIL_I32) + len(_TAIL_F32):]
+        self.flight_tail = _read_tail(tail)
+        self.flight_tail.setdefault("step", np.asarray(step, np.int32))
         if self.metrics is not None:
             self.metrics.gauge("serve.engine.pending", len(self.pending))
             self.metrics.inc("serve.engine.chunks")

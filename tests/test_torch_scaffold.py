@@ -219,13 +219,17 @@ def test_port_imports_with_jax_blocked():
         "          'serve.tuning', 'utils.checkpoint', 'obs.export',\n"
         "          'serve.watchdog', 'serve.controller', 'obs.blackbox',\n"
         "          'obs.spans', 'scenario.compiler',\n"
-        "          'scenario.streaming_runner', 'scenario.stream_canon'):\n"
+        "          'scenario.streaming_runner', 'scenario.stream_canon',\n"
+        "          'ops.gf256', 'ops.loss_estimator', 'models.rlnc',\n"
+        "          'models.hybrid', 'models.coded_trace'):\n"
         "    assert p.__name__ + '.' + m in names, m\n"
         "from go_libp2p_pubsub_torch.serve import Controller, Watchdog\n"
         "from go_libp2p_pubsub_torch.obs import BlackBox, SpanLedger\n"
         "from go_libp2p_pubsub_torch.scenario import (\n"
         "    compile_streaming_plan, run_streaming_scenario, stream_canon)\n"
-        "assert len(stream_canon.load_trace()['campaigns']) == 4\n"
+        "assert len(stream_canon.load_trace()['campaigns']) == 7\n"
+        "from go_libp2p_pubsub_torch.models import coded_trace\n"
+        "assert len(coded_trace.load_trace()['runs']) == 4\n"
         "assert defense.load_promoted() == defense.PROMOTED_DEFENSE\n"
         "assert 'go_libp2p_pubsub_tpu' not in sys.modules\n"
         "print(len(names))\n"

@@ -174,17 +174,34 @@ def test_topology_builders_match_reference(topo):
 
 
 def test_unported_families_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tscn.compile_scenario(tscn.build("degraded_links_rlnc"), device="cpu")
+    """The coded families compile (rlnc on the sim plane, the hybrid on the
+    streaming plane, refused on the sim plane as the reference refuses
+    it); placement relabeling (``peer_uid``) still raises, naming its
+    ROADMAP item."""
+    comp = tscn.compile_scenario(tscn.build("degraded_links_rlnc"),
+                                 device="cpu")
+    ref = jscn.compile_scenario(jscn.build("degraded_links_rlnc"))
+    assert_same_events(ref.events, comp.events, "degraded_links_rlnc")
+    assert type(comp.model).__name__ == "RLNC"
     # The treecast family is ported: tree_churn_heal compiles.
     comp = tscn.compile_scenario(tscn.build("tree_churn_heal"), device="cpu")
     assert comp.events.pub_msg.shape[0] == 64
     hybrid = dataclasses.replace(tscn.build("steady_state"), family="hybrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError) as te:
         tscn.compile_scenario(hybrid, device="cpu")
+    with pytest.raises(ValueError) as je:
+        jscn.compile_scenario(dataclasses.replace(
+            jscn.build("steady_state"), family="hybrid"))
+    assert str(te.value) == str(je.value)
     from go_libp2p_pubsub_torch.scenario.compiler import compile_streaming_plan
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        compile_streaming_plan(tscn.build("streaming_degraded_links"))
+    plan = compile_streaming_plan(tscn.build("streaming_degraded_links"))
+    assert plan.compare_eager and plan.spec.family == "hybrid"
+    uid = dataclasses.replace(
+        tscn.build("degraded_links_rlnc"),
+        model=dict(tscn.build("degraded_links_rlnc").model,
+                   peer_uid=list(range(64))))
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        tscn.compile_scenario(uid, device="cpu")
 
 
 def test_per_edge_delay_rejects_eclipse_silence():

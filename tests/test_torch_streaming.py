@@ -356,12 +356,18 @@ def test_non_streaming_families_and_components_refused_as_reference():
                                   "streaming_rlnc_crash_recovery",
                                   "streaming_drifting_load"])
 def test_hybrid_streaming_specs_raise_naming_a9(name):
+    """The coded plane (ROADMAP A9) is ported: the hybrid campaigns' plans
+    lower as the reference's, and the runner builds the hybrid model (a
+    ``peer_uid`` still raises, naming A10)."""
     assert jscn.compile_streaming_plan(jscn.build(name)).spec.family == \
         "hybrid"
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tscn.compile_streaming_plan(tscn.build(name))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tscn.run_streaming_scenario(tscn.build(name), device="cpu")
+    assert _plan_doc(tscn.compile_streaming_plan(tscn.build(name))) == \
+        _plan_doc(jscn.compile_streaming_plan(jscn.build(name)))
+    spec = tscn.build(name)
+    uid = dataclasses.replace(spec, model=dict(
+        spec.model, peer_uid=list(range(spec.model["n_peers"]))))
+    with pytest.raises(tscn.StreamingPlaneError, match="ROADMAP A10"):
+        tscn.run_streaming_scenario(uid, device="cpu")
 
 
 def test_cuda_runner_without_a_card_raises():
