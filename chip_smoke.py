@@ -97,7 +97,7 @@ Phases (each one fails the run, exit code != 0, on any error):
               leaf equal); the serving bench's ``degraded`` ladder (the
               tiers must reach shed_priority and drop_oldest and return to
               normal, 0 silent drops); and its ``obs`` A/B on the 100k
-              model (traced and untraced arms alternating, three repeats,
+              model (traced and untraced arms alternating, two repeats,
               equal completions, every span closed, no program prepared;
               the overhead is printed against the 2% budget);
 8. tree     -- the tree plane and the rest of the router family: the
@@ -143,16 +143,52 @@ Phases (each one fails the run, exit code != 0, on any error):
               decimation and Bernoulli loss, and a hybrid streaming
               engine killed mid-decode and restored (every leaf, record
               channel, flight tail and completion); RLNC at
-              ``bench.py``'s ``RLNC_SCALE`` widths and 100,000 peers, clean
-              and degraded (validated msgs/s, delivery, p50/p99, 0 syncs,
+              ``bench.py``'s ``RLNC_SCALE`` widths and 100,000 peers, 24
+              rounds each (the metric's window), clean and degraded (validated msgs/s,
+              delivery, p50/p99, 0 syncs,
               forged spread <= 1, peak memory, a step's device time by
               part and its launches); and the hybrid at ``HYBRID_SCALE``'s
               widths and 100,000 peers against its eager-forced twin over
-              d = 0 ... 3 and p = 0.125 ... 0.625 (points past 180 s
+              d = 0, 2 and p = 0.125, 0.25, 0.5 (points past 180 s
               dropped and listed; the d = 0 identity leaf for leaf; K1 =
               runs x 32 and K2 = runs x 8; 0 syncs; the crossover; one
               round's K1 and one heartbeat's K2 inputs, coded edges
-              present, against the plain versions, max abs err 0).
+              present, against the plain versions, max abs err 0);
+10. sharded -- the sharded rollout (``bench.py``'s ``SHARDED_SCALE``:
+              204,800 peers, 32 slots, degree 16, ``build_topology_local``
+              with topology seed 0, 8 shards, 48 rounds): the BFS
+              placement on the host (its cut reduction against random at
+              least 50%, the margin ``tests/test_placement.py`` holds);
+              the bench's closed loop (128 natively verified envelopes, 4
+              forged, published with their verdicts) through
+              ``ShardedGossipSub(placement="bfs", split_gather=True)`` at
+              world size 1 over NCCL on the card, warm and timed
+              ``rollout(48, record=True)`` (validated msgs/s as
+              ``bench.py:823-1000`` defines it, delivery > 0.999, p50/p99,
+              forged spread <= 1, K1 48 and K2 6 launches, peak memory,
+              the propagate and heartbeat phases and the gathers split
+              against the monolithic all-gather as
+              ``bench.py:sharded_phase_breakdown`` splits them); the same
+              loop on 8 ranks on the one card (a gloo group over CUDA
+              tensors, the ring's point-to-point blocks staged through
+              host buffers and counted; each rank K1 48 and K2 6), whose
+              canonical state (leaf digests) and flight record must equal
+              world size 1's, and the port's plain ``GossipSub`` at the
+              same seed under the inverse permutation must equal both;
+              2,048 peers card = CPU at world sizes 1 and 4 with the ring
+              and with all-gathers (every leaf, record channel, delivery
+              statistic and a kill's mask, and the sharded wrappers
+              against the unsharded plain functions); and K1/K2 timed at
+              a rank's block shapes (B = 25,600 and 204,800) beside their
+              bounds, the gather's bytes reckoned apart.  At most 180 s.
+
+Depth cut to make room for phase ``sharded`` (each section's seconds on
+an NVIDIA H100 80GB HBM3 at 700 W, before -> after): the hybrid loss grid
+at 100k from 9 points to 5 (91.8 -> 51.7 s) and the ``obs`` A/B from
+three repeats to two (24.7 -> 12.6 s).  RLNC at 100k keeps the bench's
+24 rounds a run: its validated msgs/s is defined over that window
+(``bench.py:1167``), and a shorter one would read higher for the same
+code.
 
 The last line is ``{"ok": true, "device": {...}}``; nothing else is
 printed after a failure.
@@ -1616,14 +1652,14 @@ def serve_degraded(dev):
                 elapsed_s=elapsed, tier_log=[list(x) for x in wd.tier_log])
 
 
-OBS_REPS, OBS_MSGS = 3, 64
+OBS_REPS, OBS_MSGS = 2, 64
 
 
 def serve_obs(dev, model):
     """The serving bench's ``obs`` A/B on the phase's 100k model: fresh
     ring and engine pairs, traced (``MetricsRegistry``,
     ``SpanLedger(sample_n=1)``, ``BlackBox(64)``) and untraced, alternate,
-    three repeats each, over the same signed constant workload.  Both arms
+    ``OBS_REPS`` repeats each, over the same signed constant workload.  Both arms
     must complete every message, every span must close, the span-exact
     p50 must not exceed the chunk-quantized p50, and no program may be
     prepared; the overhead (best of the repeats) is reported against the
@@ -2333,8 +2369,7 @@ RLNC_STEPS, RLNC_COHORT, RLNC_DELAY = 24, 0.25, 2
 HYBRID_GEOMETRY = dict(n_slots=16, conn_degree=8, gen_size=4, msg_window=32,
                        heartbeat_steps=4)
 HYBRID_STEPS = 32
-HYBRID_GRID = (("d", 0), ("d", 1), ("d", 2), ("d", 3), ("p", 0.125),
-               ("p", 0.25), ("p", 0.375), ("p", 0.5), ("p", 0.625))
+HYBRID_GRID = (("d", 0), ("d", 2), ("p", 0.125), ("p", 0.25), ("p", 0.5))
 HYBRID_BUDGET_S = 180.0      # the grid stops adding points past this
 
 
@@ -2564,9 +2599,10 @@ def _step_split(dev, model, st):
 def rlnc_full(dev, card: str):
     """RLNC at ``RLNC_SCALE``'s widths, scaled from 1,024 to 100,000 peers,
     main-path style: the signed window verified natively, 128 publishes
-    with the verdicts, a timed ``rollout(24, record=True)`` clean and with
-    a quarter of the peers decimated (delay 2), each under the sync-debug
-    mode; validated msgs/s as ``bench.py:1167`` defines it."""
+    with the verdicts, a timed ``rollout(RLNC_STEPS, record=True)`` (the
+    bench's 24 rounds, the metric's window) clean
+    and with a quarter of the peers decimated (delay 2), each under the
+    sync-debug mode; validated msgs/s as ``bench.py:1167`` defines it."""
     import numpy as np
     import torch
 
@@ -2646,7 +2682,8 @@ def _strict_win(a, e) -> bool:
 def hybrid_full(dev, card: str):
     """The hybrid at ``HYBRID_SCALE``'s widths, scaled from 256 to 100,000
     peers: adaptive against its eager-forced twin (switch thresholds above
-    1) over decimation d = 0 ... 3 and Bernoulli p = 0.125 ... 0.625, a
+    1) over ``HYBRID_GRID`` (decimation d = 0, 2 and Bernoulli p = 0.125,
+    0.25, 0.5; cut from 9 points to make room for phase ``sharded``), a
     timed ``rollout(32)`` each under the sync-debug mode; the d = 0
     identity leaf for leaf; K1/K2 launches; one round's K1 and one
     heartbeat's K2 inputs, with coded edges present, against the plain
@@ -2778,6 +2815,471 @@ def coded_phase(dev, card: str):
     return launches
 
 
+# -- phase 10: the sharded rollout ---------------------------------------------
+
+
+# bench.py:78 SHARDED_SCALE: the sharded closed loop's configuration.
+SHARDED = dict(n_peers=204_800, n_devices=8, n_slots=32, degree=16,
+               steps=48, topo_seed=0)
+SHARDED_SMALL_N = 2048          # card = CPU width of the sharded runs
+SHARDED_SMALL_STEPS = 24
+SHARDED_BLOCK_SHAPES = (25_600, 204_800)   # K1/K2 at a rank's block
+CUT_MARGIN = 0.50               # tests/test_placement.py's cut reduction
+SHARDED_BUDGET_S = 180.0
+
+
+def _sharded_model_kw():
+    from go_libp2p_pubsub_torch.models.gossipsub import build_topology_local
+
+    return dict(n_slots=SHARDED["n_slots"], conn_degree=SHARDED["degree"],
+                msg_window=N_MSGS, builder=build_topology_local)
+
+
+def _sharded_closed_loop(pm, srcs, verdicts, steps):
+    """``bench.py:sharded_child_main``'s loop on one rank: BFS placement,
+    the split-gather ring, 128 publishes with the verdicts (canonical
+    sources) -> (model, published state)."""
+    from go_libp2p_pubsub_torch.parallel.gossip_sharded import (
+        ShardedGossipSub,
+    )
+
+    sg = ShardedGossipSub(SHARDED["n_peers"], pm, placement="bfs",
+                          split_gather=True, **_sharded_model_kw())
+    st = sg.init(seed=SHARDED["topo_seed"])
+    for slot in range(N_MSGS):
+        st = sg.publish(st, int(srcs[slot]), slot, bool(verdicts[slot]))
+    return sg, st
+
+
+def _sharded_rank(device, srcs, verdicts):
+    """One of the 8 ranks on the one card (a gloo group over CUDA
+    tensors): the closed loop, a 48-round recorded rollout, the canonical
+    state's leaf digests (rank 0), the record and this rank's launches."""
+    import torch
+
+    from go_libp2p_pubsub_torch.ops import cuda_gossip
+    from go_libp2p_pubsub_torch.parallel.gossip_sharded import digest
+    from go_libp2p_pubsub_torch.parallel.mesh import make_mesh
+
+    pm = make_mesh(SHARDED["n_peers"], device=device)
+    sg, st = _sharded_closed_loop(pm, srcs, verdicts, SHARDED["steps"])
+    torch.cuda.synchronize()
+    cuda_gossip.reset_launches()
+    t0 = time.perf_counter()
+    out, rec = sg.rollout(st, SHARDED["steps"], record=True)
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t0
+    launches = {"gossip_propagate": cuda_gossip.propagate.launches,
+                "gossip_exchange": cuda_gossip.exchange_select.launches}
+    canon = sg.gather_canonical(out)
+    return dict(
+        rank=pm.rank, rollout_s=rollout_s, launches=launches,
+        staged=dict(pm.staged), perm_head=sg.perm[:8].tolist(),
+        placement_report=sg.placement_report,
+        digest=digest(canon) if pm.rank == 0 else None,
+        record={k: v.cpu().numpy() for k, v in rec.items()}
+        if pm.rank == 0 else None)
+
+
+def _sharded_small_plan(split: bool):
+    import numpy as np
+
+    from go_libp2p_pubsub_torch.models.gossipsub import build_topology_local
+
+    rng = np.random.default_rng(4)
+    n = SHARDED_SMALL_N
+    pubs = [(int(rng.integers(n)), slot, slot % 11 != 3)
+            for slot in range(40)]
+    topo = build_topology_local(np.random.default_rng(3), n,
+                                SHARDED["n_slots"], SHARDED["degree"])
+    return dict(n_peers=n, model=dict(n_slots=SHARDED["n_slots"],
+                                      conn_degree=SHARDED["degree"],
+                                      msg_window=N_MSGS),
+                topology=topo, placement="bfs", split_gather=split, seed=3,
+                publishes=pubs, steps=SHARDED_SMALL_STEPS,
+                kill=list(range(0, n, 97)))
+
+
+def _sharded_small_rank(device):
+    from go_libp2p_pubsub_torch.parallel.gossip_sharded import run_plan
+
+    return [run_plan(device, _sharded_small_plan(split))
+            for split in (True, False)]
+
+
+def _same_sharded_runs(a, b, what: str) -> int:
+    """Every leaf, record channel, delivery statistic and the kill's mask
+    of two small sharded runs, bit for bit -> values compared."""
+    import numpy as np
+
+    n = 0
+    for key in ("state", "record"):
+        if a[key].keys() != b[key].keys():
+            fail(f"{what}: {key} names differ")
+        for name in a[key]:
+            x, y = np.asarray(a[key][name]), np.asarray(b[key][name])
+            if x.dtype == np.float32:
+                x, y = x.view(np.int32), y.view(np.int32)
+            if x.dtype != y.dtype or not np.array_equal(x, y):
+                fail(f"{what}: {key} {name} differs")
+            n += 1
+    for x, y in zip(a["stats"], b["stats"]):
+        if not np.array_equal(x, y, equal_nan=True):
+            fail(f"{what}: delivery_stats differ")
+        n += 1
+    if not np.array_equal(a["alive_after_kill"], b["alive_after_kill"]):
+        fail(f"{what}: the kill's alive mask differs")
+    if not all(a["wrappers"].values()) or not all(b["wrappers"].values()):
+        fail(f"{what}: a sharded wrapper disagrees with the unsharded "
+             f"functions: {a['wrappers']} {b['wrappers']}")
+    return n + 1
+
+
+def _same_digests(a: dict, b: dict, what: str) -> int:
+    if a.keys() != b.keys():
+        fail(f"{what}: leaf names differ")
+    bad = [k for k in a if a[k] != b[k]]
+    if bad:
+        fail(f"{what}: leaves differ: {bad}")
+    return len(a)
+
+
+def _same_records(a: dict, b: dict, what: str) -> int:
+    import numpy as np
+
+    if a.keys() != b.keys():
+        fail(f"{what}: record channels differ")
+    for k in a:
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        if x.dtype == np.float32:
+            x, y = x.view(np.int32), y.view(np.int32)
+        if not np.array_equal(x, y):
+            fail(f"{what}: record channel {k} differs")
+    return len(a)
+
+
+def sharded_block_kernels(dev):
+    """K1 (through ``fresh_src``, as ``propagate_sharded`` feeds it) and K2
+    (a gathered words table) at a rank's block shapes, K = 32, W = 4:
+    warm device ms, the plain versions' ms, the bytes bound (the gather's
+    bytes reckoned apart) and the agreement with the plain versions."""
+    import torch
+
+    from go_libp2p_pubsub_torch.ops import cuda_gossip
+    from go_libp2p_pubsub_torch.ops import gossip_packed as plain
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    k, w, n_all = 32, 4, SHARDED["n_peers"]
+    out = {}
+    for b in SHARDED_BLOCK_SHAPES:
+        args, _ = propagate_inputs(gen, b, k, w, dev, "plain")
+        mesh, nbrs = args[0], torch.remainder(args[1], n_all)
+        args = (mesh, nbrs) + args[2:]
+        fresh_all = _rand(gen, (n_all, w), dev) & _rand(gen, (n_all, w), dev)
+        src = fresh_all[nbrs.long()]                       # the gather
+        kw = dict(fresh_src=src)
+        k1 = cuda_gossip.propagate(*args, **kw)
+        ref1 = plain.propagate_packed(*args, **kw)
+        x = exchange_inputs(gen, b, k, w, dev)
+        table = _rand(gen, (n_all, w), dev) & _rand(gen, (n_all, w), dev)
+        x = (torch.remainder(x[0], n_all),) + x[1:4] + (table,) + x[5:]
+        k2 = cuda_gossip.exchange_select(*x, 5000, 5000)
+        ref2 = plain.exchange_select(*x, 5000, 5000)
+        torch.cuda.synchronize()
+        errs = (_max_err(k1, ref1), _max_err(k2, ref2))
+        if errs != (0.0, 0.0):
+            fail(f"K1/K2 at block {b}: max abs err {errs}")
+        k1_bytes = propagate_bytes(args, kw, k1)
+        k2_bytes = exchange_bytes(x, k2)
+        out[b] = dict(
+            k1_ms=_time_ms(lambda: cuda_gossip.propagate(*args, **kw)),
+            k1_plain_ms=_time_ms(lambda: plain.propagate_packed(*args, **kw),
+                                 reps=3),
+            k1_bound_ms=k1_bytes / HBM_BYTES_PER_S * 1e3,
+            k1_bytes=k1_bytes,
+            # The row gather feeding K1: every rank reads the whole fresh
+            # table (all-gather; N*W words) and writes the [B, K, W] cube.
+            gather_bytes=n_all * w * 4 + _nbytes(src),
+            gather_bound_ms=(n_all * w * 4 + _nbytes(src))
+            / HBM_BYTES_PER_S * 1e3,
+            k2_ms=_time_ms(lambda: cuda_gossip.exchange_select(
+                *x, 5000, 5000)),
+            k2_plain_ms=_time_ms(lambda: plain.exchange_select(
+                *x, 5000, 5000), reps=3),
+            k2_bound_ms=k2_bytes / HBM_BYTES_PER_S * 1e3,
+            k2_bytes=k2_bytes, max_abs_err=max(errs))
+    return out
+
+
+def sharded_world1(dev, card, srcs, verdicts, verify_s, forged):
+    """World size 1 over NCCL on the card: the closed loop at 204,800
+    peers, warm and timed 48-round recorded rollouts, the phase split
+    against the monolithic gather (``bench.py:sharded_phase_breakdown``),
+    and the canonical state's digests.  Then, on the same group, the
+    2,048-peer runs at R = 1 on the card and (a gloo sub-group) on the
+    CPU."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from go_libp2p_pubsub_torch.ops import cuda_gossip
+    from go_libp2p_pubsub_torch.ops import bitpack
+    from go_libp2p_pubsub_torch.parallel.gossip_sharded import (
+        digest, run_plan,
+    )
+    from go_libp2p_pubsub_torch.models.gossipsub import GossipSub
+    from go_libp2p_pubsub_torch.parallel.mesh import free_port, make_mesh
+    from go_libp2p_pubsub_torch.utils.metrics import flight_summary
+
+    import datetime
+
+    torch.cuda.set_device(dev)
+    torch.cuda.synchronize(dev)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, device_id=dev,
+        timeout=datetime.timedelta(seconds=SHARDED_BUDGET_S))
+    try:
+        n = SHARDED["n_peers"]
+        pm = make_mesh(n, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        sg, st = _sharded_closed_loop(pm, srcs, verdicts, SHARDED["steps"])
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        sg.rollout(st, SHARDED["steps"], record=True)      # warm run
+        torch.cuda.synchronize()
+        cuda_gossip.reset_launches()
+        t0 = time.perf_counter()
+        out, rec = sg.rollout(st, SHARDED["steps"], record=True)
+        torch.cuda.synchronize()
+        rollout_s = time.perf_counter() - t0
+        launches = {"gossip_propagate": cuda_gossip.propagate.launches,
+                    "gossip_exchange": cuda_gossip.exchange_select.launches}
+        want = {"gossip_propagate": SHARDED["steps"],
+                "gossip_exchange": SHARDED["steps"] // 8}
+        if launches != want:
+            fail(f"sharded world 1: launches {launches}, expected {want}")
+        flight = flight_summary(rec)
+        frac, p50, p99 = (x.cpu().numpy() for x in sg.delivery_stats(out))
+        mean_frac = float(np.nanmean(frac))
+        if not mean_frac > 0.999:
+            fail(f"sharded world 1: delivery {mean_frac}")
+        if float(p50) != flight["lat_p50"] or float(p99) != flight["lat_p99"]:
+            fail("sharded world 1: flight-record quantiles disagree with "
+                 "delivery_stats")
+        have = sg.model.have_bool(out).cpu().numpy()
+        spread = max(int(have[:, i].sum()) for i in forged)
+        if spread > 1:
+            fail(f"sharded world 1: a forged message reached {spread} peers")
+        delivered = float(np.nansum(frac)) * n
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+
+        # The phase split against the monolithic gather (bench.py:746).
+        split_m = sg.model
+        mono = GossipSub(n_peers=n, mesh=pm.using_ring(False),   # all-gathers
+                         peer_uid=sg.perm, device=dev, **_sharded_model_kw())
+        wide = split_m._widen_indices(out)
+        j = torch.clamp(wide.nbrs, 0, n - 1)
+        table = torch.cat([wide.have_w, bitpack.pack(wide.mesh)], dim=1)
+        ring, flat = pm.using_ring(True), pm.using_ring(False)
+        phases = {
+            "propagate": dict(
+                split_ms=_time_ms(lambda: split_m._propagate(wide), reps=5),
+                monolithic_ms=_time_ms(lambda: mono._propagate(wide),
+                                       reps=5),
+                gather_split_ms=_time_ms(
+                    lambda: ring.gather(wide.fresh_w, j), reps=5),
+                gather_monolithic_ms=_time_ms(
+                    lambda: flat.gather(wide.fresh_w, j), reps=5)),
+            "heartbeat": dict(
+                split_ms=_time_ms(lambda: split_m._heartbeat(wide), reps=3),
+                monolithic_ms=_time_ms(lambda: mono._heartbeat(wide),
+                                       reps=3)),
+            "exchange_gather": dict(
+                split_ms=_time_ms(lambda: ring.gather(table, j), reps=5),
+                monolithic_ms=_time_ms(lambda: flat.gather(table, j),
+                                       reps=5),
+                table_words=int(table.shape[1])),
+        }
+        phases["propagate"]["compute_est_ms"] = max(
+            0.0, phases["propagate"]["split_ms"]
+            - phases["propagate"]["gather_split_ms"])
+        canon = sg.gather_canonical(out)
+        world1 = dict(
+            digest=digest(canon),
+            record={k: v.cpu().numpy() for k, v in rec.items()})
+        del canon, wide, out, st, sg, mono
+        torch.cuda.empty_cache()
+        summary = dict(
+            gossipsub_sharded_validated_msgs_per_sec=delivered / (
+                rollout_s + verify_s),
+            n_peers=n, world=1, backend="nccl", placement="bfs",
+            split_gather=True, rollout_steps=SHARDED["steps"],
+            delivery_frac=mean_frac, p50_latency_rounds=float(p50),
+            p99_latency_rounds=float(p99), forged_spread=spread,
+            init_s=init_s, rollout_s=rollout_s,
+            window_verify_charged_ms=verify_s * 1e3, peak_mem_gb=peak,
+            launches=launches, phase_split_ms=phases, flight=flight,
+            card=card)
+
+        # 2,048 peers at R = 1: the card (this NCCL group) and the CPU (a
+        # gloo sub-group of the same process).
+        cpu_group = dist.new_group([0], backend="gloo")
+        small = {}
+        for split in (True, False):
+            plan = _sharded_small_plan(split)
+            small[("card", 1, split)] = run_plan(dev, plan)
+            small[("cpu", 1, split)] = run_plan("cpu", plan, group=cpu_group)
+        return summary, world1, launches, small
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_phase(dev, card: str):
+    """Phase 10.  Returns the kernels' launches in the world-1 timed
+    rollout."""
+    import concurrent.futures as cf
+
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_torch.crypto import native
+    from go_libp2p_pubsub_torch.models.gossipsub import (
+        GossipSub, build_topology_local,
+    )
+    from go_libp2p_pubsub_torch.ops import cuda_ed25519
+    from go_libp2p_pubsub_torch.parallel.gossip_sharded import digest
+    from go_libp2p_pubsub_torch.parallel.mesh import run_ranks
+    from go_libp2p_pubsub_torch.parallel.placement import (
+        partition_bfs, placement_report,
+    )
+
+    t_phase = time.perf_counter()
+    n = SHARDED["n_peers"]
+    # 1. Placement on the host: the bench's mesh into 8 shards.
+    t0 = time.perf_counter()
+    nbrs, _rev, valid, _out = build_topology_local(
+        np.random.default_rng(SHARDED["topo_seed"]), n, SHARDED["n_slots"],
+        SHARDED["degree"])
+    perm, _ = partition_bfs(nbrs, valid, SHARDED["n_devices"])
+    report = placement_report(nbrs, valid, SHARDED["n_devices"], perm,
+                              seed=SHARDED["topo_seed"])
+    placement_s = time.perf_counter() - t0
+    if report["cut_reduction_vs_random"] < CUT_MARGIN:
+        fail(f"BFS placement cut reduction {report['cut_reduction_vs_random']}"
+             f" under {CUT_MARGIN}")
+    print(f"sharded placement: {placement_s:.1f} s", flush=True)
+
+    # The bench's closed loop: the signed window verified natively.
+    rng = np.random.default_rng(1)
+    envs, forged = signed_window(rng)
+    pks = [e.pubkey for e in envs]
+    msgs = [native.signing_bytes(e.topic, e.seqno, e.payload) for e in envs]
+    sigs = [e.signature for e in envs]
+    native.verify_batch(pks[:16], msgs[:16], sigs[:16])
+    t0 = time.perf_counter()
+    verdicts = native.verify_batch(pks, msgs, sigs)
+    verify_s = time.perf_counter() - t0
+    if not np.array_equal(verdicts, [i not in forged for i in range(N_MSGS)]):
+        fail("sharded: native verdicts do not match the forged set")
+    srcs = [int(rng.integers(n)) for _ in range(N_MSGS)]
+
+    # 2. World size 1 over NCCL, and the R = 1 small runs.
+    t0 = time.perf_counter()
+    cuda_ed25519.reset_launches()
+    summary, world1, launches, small = sharded_world1(
+        dev, card, srcs, verdicts, verify_s, forged)
+    launches["ed25519_verify"] = cuda_ed25519.verify.launches
+    print(f"sharded world1: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 3. Eight ranks on the one card (gloo over CUDA tensors), and the
+    # R = 4 small runs on the card and on the CPU, side by side.
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(1) as ex:
+        small4 = ex.submit(lambda: (
+            run_ranks(_sharded_small_rank, 4, "gloo", str(dev), 300.0),
+            run_ranks(_sharded_small_rank, 4, "gloo", "cpu", 300.0)))
+        ranks8 = run_ranks(_sharded_rank, SHARDED["n_devices"], "gloo",
+                           str(dev), 600.0, args=(srcs, verdicts))
+        card4, cpu4 = small4.result()
+    eight_s = time.perf_counter() - t0
+    print(f"sharded eight_ranks: {eight_s:.1f} s", flush=True)
+    want = {"gossip_propagate": SHARDED["steps"],
+            "gossip_exchange": SHARDED["steps"] // 8}
+    for r in ranks8:
+        if r["launches"] != want:
+            fail(f"rank {r['rank']}: launches {r['launches']}, want {want}")
+        if r["placement_report"] != report:
+            fail(f"rank {r['rank']}: placement report differs from the "
+                 f"host's")
+    leaves8 = _same_digests(ranks8[0]["digest"], world1["digest"],
+                            "8 ranks against world 1 (canonical state)")
+    _same_records(ranks8[0]["record"], world1["record"],
+                  "8 ranks against world 1 (flight record)")
+
+    # The port's plain GossipSub at the same seed, unplaced.
+    t0 = time.perf_counter()
+    plain = GossipSub(device=dev, n_peers=n, **_sharded_model_kw())
+    st = plain.init(seed=SHARDED["topo_seed"])
+    for slot in range(N_MSGS):
+        st = plain.publish(st, srcs[slot], slot, bool(verdicts[slot]))
+    st, rec = plain.rollout(st, SHARDED["steps"], record=True)
+    plain_digest = digest({
+        name: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+               else np.asarray(v)) for name, v in _leaves(st)})
+    _same_digests(plain_digest, world1["digest"],
+                  "plain GossipSub against the sharded run (canonical)")
+    _same_records({k: v.cpu().numpy() for k, v in rec.items()},
+                  world1["record"], "plain GossipSub's flight record")
+    del st, rec, plain
+    torch.cuda.empty_cache()
+    plain_s = time.perf_counter() - t0
+
+    # 4. Card = CPU at 2,048 peers, R = 1 and 4, ring and all-gather.
+    compared = 0
+    for split in (True, False):
+        compared += _same_sharded_runs(
+            small[("card", 1, split)], small[("cpu", 1, split)],
+            f"2,048 peers R=1 split={split}: card against CPU")
+        compared += _same_sharded_runs(
+            card4[0][0 if split else 1], cpu4[0][0 if split else 1],
+            f"2,048 peers R=4 split={split}: card against CPU")
+        compared += _same_sharded_runs(
+            small[("cpu", 1, split)], cpu4[0][0 if split else 1],
+            f"2,048 peers split={split}: R=1 against R=4")
+    for rank in card4:
+        for run in rank:
+            if run["launches"] != {
+                    "gossip_propagate": SHARDED_SMALL_STEPS,
+                    "gossip_exchange": SHARDED_SMALL_STEPS // 8}:
+                fail(f"2,048 peers R=4 on the card: launches "
+                     f"{run['launches']}")
+    blocks = sharded_block_kernels(dev)
+    seconds = time.perf_counter() - t_phase
+    emit(dict(
+        phase="sharded", seconds=seconds, card=card,
+        placement=dict(report, init_s=placement_s, n_peers=n,
+                       n_shards=SHARDED["n_devices"]),
+        world1=summary,
+        eight_ranks=dict(
+            world=SHARDED["n_devices"], backend="gloo", device=str(dev),
+            rollout_s=[r["rollout_s"] for r in ranks8],
+            staged_bytes=[r["staged"]["bytes"] for r in ranks8],
+            staged_ops=[r["staged"]["ops"] for r in ranks8],
+            launches=ranks8[0]["launches"], wall_s=eight_s,
+            canonical_leaves_equal_world1=leaves8,
+            canonical_leaves_equal_plain=leaves8, plain_run_s=plain_s),
+        card_equals_cpu=dict(n_peers=SHARDED_SMALL_N,
+                             steps=SHARDED_SMALL_STEPS, worlds=[1, 4],
+                             values_compared=compared),
+        block_kernels={str(b): v for b, v in blocks.items()},
+        budget_s=SHARDED_BUDGET_S))
+    if seconds > SHARDED_BUDGET_S:
+        fail(f"phase sharded took {seconds:.1f} s, over {SHARDED_BUDGET_S}")
+    return launches
+
+
 def main() -> None:
     try:
         import torch
@@ -2814,6 +3316,7 @@ def main() -> None:
     serve_launches, streaming_launches = serve_phase(dev, card)
     tree_launches = tree_phase(dev, card)
     coded_launches = coded_phase(dev, card)
+    sharded_launches = sharded_phase(dev, card)
     for r in records:
         r["launches"] = launches[r["name"]]
         r["launches_scenario"] = scenario_launches[r["name"]]
@@ -2821,6 +3324,7 @@ def main() -> None:
         r["launches_streaming"] = streaming_launches[r["name"]]
         r["launches_tree"] = tree_launches[r["name"]]
         r["launches_coded"] = coded_launches[r["name"]]
+        r["launches_sharded"] = sharded_launches[r["name"]]
         emit(dict(phase="kernel", **r))
     emit({"kernels": records})
     print(card, flush=True)

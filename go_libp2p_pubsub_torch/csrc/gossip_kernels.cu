@@ -400,7 +400,10 @@ propagate_kernel(
 // running popcount over the slot's words), ids already held are dropped,
 // the first advertiser of each id keeps it (`before` is the OR of the
 // wants walked so far), the asks are capped at max_iwant, served asks are
-// ORed into pend and the others counted as broken promises.
+// ORed into pend and the others counted as broken promises.  The words
+// table has n_rows rows: the whole [N, W] table for one device, or, for a
+// rank of the sharded rollout, the gathered table of its block's
+// advertisers.
 template <int W>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 exchange_kernel(
@@ -408,12 +411,12 @@ exchange_kernel(
     const uint8_t* __restrict__ adv_ok_p,    // [N, K]
     const uint8_t* __restrict__ accept_p,    // [N, K]
     const uint8_t* __restrict__ serve_p,     // [N, K]
-    const uint32_t* __restrict__ rows,       // [N, W]
+    const uint32_t* __restrict__ rows,       // [R, W], R = n_rows
     const uint32_t* __restrict__ have_dedup, // [N, W]
     const uint8_t* __restrict__ alive,       // [N]
     uint32_t* __restrict__ pend,             // [N, W]
     float* __restrict__ broken_p,            // [N, K]
-    int n, int k, int w_rt, int max_ihave, int max_iwant) {
+    int n, int n_rows, int k, int w_rt, int max_ihave, int max_iwant) {
   using C = Count<W>;
   constexpr int V = W > 0 ? W : 1;
   // Generic W: each walked slot's running IHAVE and IWANT counts too.
@@ -450,7 +453,7 @@ exchange_kernel(
     __syncwarp();
     if (in) {
       auto src = [&](int s) -> const uint32_t* {
-        return rows + (long long)clamp_peer(ids[e0 + s], n) * w;
+        return rows + (long long)clamp_peer(ids[e0 + s], n_rows) * w;
       };
       if constexpr (W > 0) {
         constexpr int G = kBatchK2<V>;
@@ -552,8 +555,9 @@ template <int W>
 int launch_exchange(const void* jidx_p, const void* adv_ok_p,
                     const void* accept_p, const void* serve_p, const void* rows,
                     const void* have_dedup, const void* alive, void* pend,
-                    void* broken_p, int n, int k, int w, int max_ihave,
-                    int max_iwant, int grid, cudaStream_t stream) {
+                    void* broken_p, int n, int n_rows, int k, int w,
+                    int max_ihave, int max_iwant, int grid,
+                    cudaStream_t stream) {
   const int smem = exchange_smem<W>(k);
   cudaError_t err = launch_setup(exchange_kernel<W>, smem);
   if (err != cudaSuccess) return (int)err;
@@ -561,7 +565,7 @@ int launch_exchange(const void* jidx_p, const void* adv_ok_p,
       (const int32_t*)jidx_p, (const uint8_t*)adv_ok_p,
       (const uint8_t*)accept_p, (const uint8_t*)serve_p, (const uint32_t*)rows,
       (const uint32_t*)have_dedup, (const uint8_t*)alive, (uint32_t*)pend,
-      (float*)broken_p, n, k, w, max_ihave, max_iwant);
+      (float*)broken_p, n, n_rows, k, w, max_ihave, max_iwant);
   return (int)cudaGetLastError();
 }
 
@@ -636,15 +640,16 @@ extern "C" int gossip_exchange(
     const void* jidx_p, const void* adv_ok_p, const void* accept_p,
     const void* serve_p, const void* rows, const void* have_dedup,
     const void* alive, void* pend, void* broken_p,
-    int n, int k, int w, int max_ihave, int max_iwant, int variant, int grid,
-    void* stream) {
+    int n, int n_rows, int k, int w, int max_ihave, int max_iwant, int variant,
+    int grid, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  if (k < 0 || k > kMaxSlots || grid < 1) return (int)cudaErrorInvalidValue;
+  if (k < 0 || k > kMaxSlots || grid < 1 || n_rows < 1)
+    return (int)cudaErrorInvalidValue;
   if (variant != 0 && variant != w) return (int)cudaErrorInvalidValue;
 #define GOSSIP_EXCHANGE(WV)                                                  \
   launch_exchange<WV>(jidx_p, adv_ok_p, accept_p, serve_p, rows, have_dedup, \
-                      alive, pend, broken_p, n, k, w, max_ihave, max_iwant,  \
-                      grid, (cudaStream_t)stream)
+                      alive, pend, broken_p, n, n_rows, k, w, max_ihave,     \
+                      max_iwant, grid, (cudaStream_t)stream)
   switch (variant) {
     case 1: return GOSSIP_EXCHANGE(1);
     case 2: return GOSSIP_EXCHANGE(2);

@@ -34,9 +34,25 @@ state:
 Covered: the closed loop (init, publish, kill_peers, step, rollout with
 the flight recorder, delivery_stats) and the scenario event path (the
 ``set_*`` mutators, ``graft_spammers``, per-edge delay with
-``max_edge_delay``/``set_edge_delay``, ``rollout_events``) and direct
-peering (``direct_edges``).  Placement relabeling and the sharded path
-are not ported yet.
+``max_edge_delay``/``set_edge_delay``, ``rollout_events``), direct
+peering (``direct_edges``), placement relabeling (``peer_uid``: every
+per-peer draw and the colocation labels follow canonical identity) and
+the sharded rollout.
+
+Sharded (``mesh=``, a ``parallel.mesh.PeerMesh``; one process a rank):
+the state's peer-dim leaves are the rank's block of rows and the
+replicated leaves (message metadata, key, step) are whole on every rank.
+Every read across peer rows goes through the mesh -- row gathers (an
+all-gather, or the split-gather ring where the mesh has ``ring`` set),
+integer all-reduces for counts, extrema and the scatters onto other
+ranks' rows, and an all-gather of the per-peer scores the quantiles
+read -- so a rank's
+block is bit for bit the same rows of the unsharded run.  K1/K2 run on the
+block through ``cuda_gossip.propagate_sharded`` /
+``exchange_select_sharded``.  Ids at this API are physical (rows of the
+whole state); ``parallel.gossip_sharded.ShardedGossipSub`` translates
+canonical ids.  With ``mesh=None`` the code path is the unsharded one.
+The event path (``rollout_events``) is not sharded.
 """
 
 from __future__ import annotations
@@ -69,6 +85,7 @@ from ..ops.graphs import (
 from ..ops.px import px_rewire
 from ..ops.schedule import GossipEvents
 from ..ops.scoring import GlobalCounters, TopicCounters, segment_sum
+from ..parallel.mesh import shard_state
 
 FLIGHT_HIST_BINS = 32
 _AGE_CAP = (2**31 - 1) // 2
@@ -124,6 +141,27 @@ class GossipState(NamedTuple):
     msg_used: torch.Tensor      # bool[M]
     key: torch.Tensor           # int32[2] threefry key (uint32 bit patterns)
     step: int                   # round counter, owned by the host
+
+
+# Which GossipState fields shard over a PeerMesh (the reference's
+# ``parallel/gossip_sharded.py`` ``_PEER_DIM_FIELDS`` /
+# ``_REPLICATED_FIELDS``): peer-dim fields split their leading [N] axis
+# into the ranks' row blocks, replicated ones (message metadata, key,
+# step) stay whole.  By NAME, never by shape (``msg_window == n_peers``
+# must not shard the metadata); ``parallel.gossip_sharded`` validates
+# that the two sets cover every field.
+_PEER_DIM_FIELDS = frozenset({
+    "nbrs", "rev", "nbr_valid", "outbound", "alive", "subscribed",
+    "edge_live", "nbr_sub", "mesh", "fanout", "fanout_age", "backoff",
+    "counters", "gcounters", "scores", "have_w", "fresh_w",
+    "gossip_pend_w", "iwant_pend_w", "gossip_mute", "self_promo",
+    "gossip_delay",
+    "pend_hold", "edge_delay", "fresh_hist", "first_step",
+})
+_REPLICATED_FIELDS = frozenset({
+    "msg_valid", "msg_birth", "msg_active", "msg_used", "key", "step",
+})
+GOSSIP_PEER_DIMS: Dict[str, int] = {f: 0 for f in _PEER_DIM_FIELDS}
 
 
 # -- host-side topology builders (numpy copies of the reference's) ---------
@@ -280,7 +318,8 @@ def seed_message(
 ):
     """Window-slot recycle + seed: clear the slot's bit for ALL peers (in
     both pend planes too, or a stale transfer of the old message would
-    deliver the new one), then stamp the publisher.  Returns the nine
+    deliver the new one), then stamp the publisher (row ``src``; None on a
+    rank of the sharded rollout that does not own it).  Returns the nine
     updated window leaves in argument order."""
     word, bit = divmod(int(slot), bitpack.WORD)
     clear = ~bitpack.as_int32_bits(1 << bit)
@@ -291,13 +330,15 @@ def seed_message(
         return plane
 
     have_w, fresh_w = cleared(have_w), cleared(fresh_w)
-    have_w[src, word] |= ~clear
-    fresh_w[src, word] |= ~clear
+    if src is not None:
+        have_w[src, word] |= ~clear
+        fresh_w[src, word] |= ~clear
     # Element stores of Python scalars go through ``fill_``: an indexed
     # assignment would copy the scalar from the host and synchronise.
     first_step = first_step.clone()
     first_step[:, slot] = -1
-    first_step[src, slot].fill_(step)
+    if src is not None:
+        first_step[src, slot].fill_(step)
     msg_valid, msg_birth = msg_valid.clone(), msg_birth.clone()
     msg_active, msg_used = msg_active.clone(), msg_used.clone()
     if isinstance(valid, torch.Tensor):
@@ -337,6 +378,24 @@ def _nanquantile_int(lat: torch.Tensor, mask: torch.Tensor, q: float):
     low_i = torch.clamp(torch.minimum(low, count - 1.0), min=0.0).long()
     high_i = torch.clamp(torch.minimum(high, count - 1.0), min=0.0).long()
     lo_v, hi_v = a[low_i], a[high_i]
+    out = fma(hi_v, high_w, lo_v * low_w)
+    return torch.where(count > 0, out, torch.nan)
+
+
+def _hist_quantile_int(cum: torch.Tensor, q: float):
+    """:func:`_nanquantile_int` from the cumulative counts of whole-round
+    latencies (``cum[v]`` = values <= v): the order statistic of rank r is
+    the least v with ``cum[v] > r``, so the arithmetic is the same f32
+    operations on the same two values."""
+    count = cum[-1].to(torch.float32)
+    qq = (count - 1.0) * q
+    low, high = torch.floor(qq), torch.ceil(qq)
+    high_w = qq - low
+    low_w = 1.0 - high_w
+    low_i = torch.clamp(torch.minimum(low, count - 1.0), min=0.0).long()
+    high_i = torch.clamp(torch.minimum(high, count - 1.0), min=0.0).long()
+    lo_v = (cum <= low_i).sum().to(torch.float32)
+    hi_v = (cum <= high_i).sum().to(torch.float32)
     out = fma(hi_v, high_w, lo_v * low_w)
     return torch.where(count > 0, out, torch.nan)
 
@@ -409,6 +468,8 @@ class GossipSub:
         max_edge_delay: int = 0,
         direct_edges: Optional[np.ndarray] = None,
         index_dtype_override=None,
+        peer_uid: Optional[np.ndarray] = None,
+        mesh=None,
         device="cuda",
     ):
         self.device = resolve_device(device)
@@ -444,6 +505,42 @@ class GossipSub:
         # refused attempts accrue the P7 behaviour penalty.
         self.graft_spammers = None if graft_spammers is None else self._t(
             np.asarray(graft_spammers, bool))
+        # Canonical id of each physical row under a placement relabeling
+        # (``parallel/placement``): every per-peer draw routes through it
+        # (``ops.gossip.uniform_by_uid``) and the colocation labels are
+        # these ids, so the relabeled rollout is the canonical one under
+        # the inverse permutation.  None (the identity) keeps every op
+        # unchanged.
+        if peer_uid is None:
+            self.peer_uid = None
+        else:
+            pu = np.asarray(peer_uid)
+            if pu.shape != (n_peers,):
+                raise ValueError(f"peer_uid must be [N={n_peers}]")
+            if not np.array_equal(np.sort(pu), np.arange(n_peers)):
+                raise ValueError("peer_uid must be a permutation of 0..N-1")
+            self.peer_uid = self._t(pu.astype(np.int32))
+        # The sharded rollout: this rank's block of rows [row0, row0 + nl).
+        if mesh is None:
+            self.peer_mesh = None
+            self.nl, self.row0 = n_peers, 0
+            self._uid = self.peer_uid
+        else:
+            if mesh.n != n_peers:
+                raise ValueError(
+                    f"mesh is over {mesh.n} peers, model has {n_peers}")
+            if mesh.device != self.device:
+                raise ValueError(
+                    f"mesh device {mesh.device} is not the model's "
+                    f"{self.device}")
+            self.peer_mesh = mesh
+            self.nl, self.row0 = mesh.block, mesh.row0
+            # A rank always draws by row ids: its rows of the whole draw.
+            self._uid = mesh.local(
+                self.peer_uid if self.peer_uid is not None else torch.arange(
+                    n_peers, dtype=torch.int32, device=self.device))
+            if self.graft_spammers is not None:
+                self.graft_spammers = mesh.local(self.graft_spammers)
         # Direct (explicit) peering, go-gossipsub's WithDirectPeers: a
         # symmetric bool[N, K] slot mask of always-forward edges.  They
         # relay every round regardless of mesh membership or the remote's
@@ -457,7 +554,15 @@ class GossipSub:
             if de.shape != (n_peers, n_slots):
                 raise ValueError(
                     f"direct_edges must be [N={n_peers}, K={n_slots}]")
-            self.direct_edges = self._t(de)
+            self._direct_full = de
+            self.direct_edges = self._t(
+                de if self.peer_mesh is None else self.peer_mesh.local(de))
+
+    @property
+    def split_gather(self) -> bool:
+        """The mesh's row gathers take the split-gather ring
+        (``PeerMesh.ring``)."""
+        return self.peer_mesh is not None and self.peer_mesh.ring
 
     def _t(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
@@ -478,7 +583,12 @@ class GossipSub:
             None if self.graft_spammers is None
             else bytes(self.graft_spammers.cpu().numpy()),
             None if self.direct_edges is None
-            else bytes(np.packbits(self.direct_edges.cpu().numpy())),
+            else bytes(np.packbits(self._direct_full)),
+            None if self.peer_uid is None
+            else bytes(self.peer_uid.cpu().numpy()),
+            None if self.peer_mesh is None
+            else (self.peer_mesh.rank, self.peer_mesh.world,
+                  self.split_gather),
         )
 
     def __eq__(self, other):
@@ -508,14 +618,28 @@ class GossipSub:
     def init(self, seed: int = 0,
              subscribed: Optional[np.ndarray] = None) -> GossipState:
         """Fresh state after 3 warmup heartbeats; ``subscribed`` masks topic
-        membership (default: every peer)."""
-        nbrs, rev, valid, outbound = self.build_graph(seed)
+        membership (default: every peer).  Sharded: the whole fresh state
+        is built on the host, cut to the rank's block, and warmed up on the
+        mesh."""
+        if self.peer_mesh is None:
+            return self._warmup(self._fresh_state(seed, subscribed))
+        whole = self._fresh_state(seed, subscribed, torch.device("cpu"))
+        st = shard_state(whole, self.peer_mesh,
+                         replicated=_REPLICATED_FIELDS,
+                         peer_dim=GOSSIP_PEER_DIMS)
+        return self._warmup(st)
+
+    def _fresh_state(self, seed: int, subscribed, dev=None) -> GossipState:
+        """The whole state before the warmup heartbeats, on ``dev`` (the
+        model's device by default)."""
+        dev = self.device if dev is None else dev
+        nbrs, rev, valid, outbound = (t.to(dev) for t in self.build_graph(
+            seed))
         n, k, m, w = self.n, self.k, self.m, self.w
-        dev = self.device
         if self.direct_edges is not None:
             # Direct peering is mutual: the mask must sit on wired slots and
             # be symmetric over the slot pairing.
-            de = self.direct_edges.cpu().numpy()
+            de = self._direct_full
             nv = valid.cpu().numpy()
             if (de & ~nv).any():
                 raise ValueError("direct_edges marks an unwired slot")
@@ -526,9 +650,14 @@ class GossipSub:
                     "direct_edges must be symmetric over the slot pairing")
         zeros = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)  # noqa: E731
         alive0 = torch.ones(n, dtype=torch.bool, device=dev)
-        sub0 = alive0.clone() if subscribed is None else self._t(
-            subscribed, torch.bool)
-        st = GossipState(
+        sub0 = alive0.clone() if subscribed is None else torch.as_tensor(
+            np.asarray(subscribed), dtype=torch.bool, device=dev)
+        gcounters = GlobalCounters.zeros(n, device=dev)
+        if self.peer_uid is not None:
+            # Colocation labels follow canonical identity (one group a
+            # peer either way).
+            gcounters = gcounters._replace(ip_group=self.peer_uid.to(dev))
+        return GossipState(
             nbrs=nbrs,
             rev=rev,
             nbr_valid=valid,
@@ -543,7 +672,7 @@ class GossipSub:
                                   device=dev),
             backoff=zeros((n, k), torch.int32),
             counters=TopicCounters.zeros(n, k, device=dev),
-            gcounters=GlobalCounters.zeros(n, device=dev),
+            gcounters=gcounters,
             scores=zeros((n, k), torch.float32),
             have_w=zeros((n, w), torch.int32),
             fresh_w=zeros((n, w), torch.int32),
@@ -565,7 +694,6 @@ class GossipSub:
             key=rng.PRNGKey(seed, device=dev),
             step=0,
         )
-        return self._warmup(st)
 
     # -- narrow index storage <-> int32 view --------------------------------
 
@@ -600,44 +728,56 @@ class GossipSub:
         With ``flood_publish`` the message is offered to every connected
         topic peer above ``publish_threshold`` (landing next round through
         the pend fold); otherwise a non-subscribed publisher tops up and
-        uses its fanout set."""
+        uses its fanout set.
+
+        Sharded: the rank that owns row ``src`` picks the targets (its
+        fanout draw, its row's leaves); their ids reach every rank through
+        one integer all-reduce MAX (-1 from the others), and each rank
+        writes the offered copies into the targets it owns.  The [M]
+        metadata updates alike on every rank."""
         p, sp = self.params, self.score_params
-        n, k, dev = self.n, self.k, self.device
+        pm = self.peer_mesh
+        n, k, b, dev = self.n, self.k, self.nl, self.device
         src, slot = int(src), int(slot)
+        # The publisher's local row, None on a rank that does not own it.
+        ls = src - self.row0 if 0 <= src - self.row0 < b else None
         (have_w, fresh_w, pend_w, iwant_pend_w, first_step,
          mv, mb, ma, mu) = seed_message(
             st.have_w, st.fresh_w, st.gossip_pend_w, st.iwant_pend_w,
             st.first_step, st.msg_valid, st.msg_birth, st.msg_active,
-            st.msg_used, src, slot, valid, st.step,
+            st.msg_used, ls, slot, valid, st.step,
         )
         kpub, knext = rng.split(st.key, 2).unbind(0)
-        eligible = (
-            st.edge_live[src]
-            & st.nbr_sub[src]
-            & (st.scores[src] >= sp.publish_threshold)
-        )
-        # Direct peers are covered by the always-forward path; go's Publish
-        # never selects them into flood/fanout targets.
-        if self.direct_edges is not None:
-            eligible = eligible & ~self.direct_edges[src]
         fanout, fanout_age = st.fanout, st.fanout_age
-        if p.flood_publish:
-            targets = eligible
-        else:
-            cur = st.fanout[src] & eligible
-            want = torch.clamp(p.d - cur.sum(), 0, p.d).to(torch.int32)
-            r = rng.uniform(kpub, (1, k))
-            add = top_mask(
-                torch.where((eligible & ~cur)[None, :], r, -torch.inf),
-                want[None], kmax=p.d,
-            )[0]
-            newf = cur | add
-            is_sub = st.subscribed[src]
-            targets = torch.where(is_sub, False, newf)
-            fanout = st.fanout.clone()
-            fanout[src] = torch.where(is_sub, st.fanout[src], newf)
-            fanout_age = st.fanout_age.clone()
-            fanout_age[src] = torch.where(is_sub, st.fanout_age[src], 0)
+        ids = torch.full((k,), -1, dtype=torch.int32, device=dev)
+        if ls is not None:
+            eligible = (
+                st.edge_live[ls]
+                & st.nbr_sub[ls]
+                & (st.scores[ls] >= sp.publish_threshold)
+            )
+            # Direct peers are covered by the always-forward path; go's
+            # Publish never selects them into flood/fanout targets.
+            if self.direct_edges is not None:
+                eligible = eligible & ~self.direct_edges[ls]
+            if p.flood_publish:
+                targets = eligible
+            else:
+                cur = st.fanout[ls] & eligible
+                want = torch.clamp(p.d - cur.sum(), 0, p.d).to(torch.int32)
+                r = rng.uniform(kpub, (1, k))
+                add = top_mask(
+                    torch.where((eligible & ~cur)[None, :], r, -torch.inf),
+                    want[None], kmax=p.d,
+                )[0]
+                newf = cur | add
+                is_sub = st.subscribed[ls]
+                targets = torch.where(is_sub, False, newf)
+                fanout = st.fanout.clone()
+                fanout[ls] = torch.where(is_sub, st.fanout[ls], newf)
+                fanout_age = st.fanout_age.clone()
+                fanout_age[ls] = torch.where(is_sub, st.fanout_age[ls], 0)
+            ids = torch.where(targets, decode_index_plane(st.nbrs[ls]), n)
         # Offered copies land next round through the pend fold; valid-only.
         # A receiver with ingress latency arms its hold only when idle and
         # empty, and only when a bit was actually placed.
@@ -648,12 +788,17 @@ class GossipSub:
             bm[word] = torch.where(valid, bitpack.as_int32_bits(1 << bit), 0)
         elif valid:
             bm[word].fill_(bitpack.as_int32_bits(1 << bit))
-        rows = torch.where(targets, decode_index_plane(st.nbrs[src]), n).long()
-        rows_c = torch.clamp(rows, 0, n - 1)
+        # Target rows of this rank's block; row b (dropped) elsewhere.
+        if pm is None:
+            rows = ids.long()
+        else:
+            loc = pm.max(ids.to(torch.int32)).long() - self.row0
+            rows = torch.where((loc >= 0) & (loc < b), loc, b)
+        rows_c = torch.clamp(rows, 0, b - 1)
         gathered = pend_w[rows_c]                                # [K, W]
         ext = torch.cat([pend_w, pend_w.new_zeros((1, self.w))])
         ext[rows] = gathered | bm[None, :]
-        pend_w = ext[:n]
+        pend_w = ext[:b]
         cur_hold = st.pend_hold[rows_c]
         arm = (cur_hold <= 0) & (gathered == 0).all(dim=-1) & valid
         hold_ext = torch.cat([st.pend_hold, st.pend_hold.new_zeros(1)])
@@ -666,31 +811,58 @@ class GossipSub:
             cur = (st.step - 1) % (self.max_edge_delay + 1)
             fresh_hist = fresh_hist.clone()
             fresh_hist[:, :, word] &= ~bitpack.as_int32_bits(1 << bit)
-            fresh_hist[src, cur, word] |= bitpack.as_int32_bits(1 << bit)
+            if ls is not None:
+                fresh_hist[ls, cur, word] |= bitpack.as_int32_bits(1 << bit)
         return st._replace(
             have_w=have_w, fresh_w=fresh_w, gossip_pend_w=pend_w,
-            iwant_pend_w=iwant_pend_w, pend_hold=hold_ext[:n],
+            iwant_pend_w=iwant_pend_w, pend_hold=hold_ext[:b],
             fresh_hist=fresh_hist,
             first_step=first_step, msg_valid=mv, msg_birth=mb,
             msg_active=ma, msg_used=mu, fanout=fanout,
             fanout_age=fanout_age, key=knext,
         )
 
+    def _local(self, x, dtype=None) -> torch.Tensor:
+        """A per-peer argument (bool[N] mask, int32[N] delays, [N, K]
+        planes) as a tensor on the model's device; a rank of the sharded
+        rollout keeps its block of rows."""
+        t = torch.as_tensor(x, device=self.device)
+        if dtype is not None:
+            t = t.to(dtype)
+        return t if self.peer_mesh is None else self.peer_mesh.local(t)
+
+    def _safe_gather(self, arr, idx, fill):
+        """``safe_gather`` across the mesh (``arr`` the rank's block,
+        ``idx`` global ids, negative -> ``fill``)."""
+        if self.peer_mesh is None:
+            return safe_gather(arr, idx, fill)
+        out = self.peer_mesh.gather(arr, idx)
+        valid = idx >= 0
+        if out.ndim > valid.ndim:
+            valid = valid.reshape(valid.shape + (1,) * (out.ndim - valid.ndim))
+        return torch.where(valid, out, fill)
+
+    def _edge_live(self, nbr_valid, nbrs, alive) -> torch.Tensor:
+        """:func:`compute_edge_live` across the mesh."""
+        if self.peer_mesh is None:
+            return compute_edge_live(nbr_valid, nbrs, alive)
+        return nbr_valid & self._safe_gather(
+            alive, decode_index_plane(nbrs), False)
+
     def kill_peers(self, st: GossipState, mask: torch.Tensor) -> GossipState:
         """Abrupt peer failure (bool[N] mask); the mesh self-heals at the
         next heartbeat."""
-        alive = st.alive & ~torch.as_tensor(mask, device=self.device)
+        alive = st.alive & ~self._local(mask)
         return st._replace(
             alive=alive,
-            edge_live=compute_edge_live(st.nbr_valid, st.nbrs, alive),
+            edge_live=self._edge_live(st.nbr_valid, st.nbrs, alive),
         )
 
     def set_gossip_delay(self, st: GossipState, delay) -> GossipState:
         """Per-peer ingress gossip latency (int32[N] extra rounds pending
         gossip/flood transfers wait before folding); zeros restore the
         ideal one-round fabric."""
-        return st._replace(gossip_delay=torch.as_tensor(
-            delay, device=self.device).to(torch.int32))
+        return st._replace(gossip_delay=self._local(delay, torch.int32))
 
     def set_edge_delay(self, st: GossipState, delay) -> GossipState:
         """Per-edge eager-path ingress latency (int32[N, K]: extra rounds a
@@ -706,28 +878,25 @@ class GossipSub:
             )
         if d.min(initial=0) < 0:
             raise ValueError("edge delays must be >= 0")
-        return st._replace(edge_delay=self._t(d, torch.int32))
+        return st._replace(edge_delay=self._local(d, torch.int32))
 
     def set_gossip_mute(self, st: GossipState, mask) -> GossipState:
         """Mark peers (bool[N]) as promise-breakers: they advertise IHAVEs
         but never serve the IWANTs; every ask charges their P7."""
-        return st._replace(gossip_mute=torch.as_tensor(
-            mask, device=self.device).to(torch.bool))
+        return st._replace(gossip_mute=self._local(mask, torch.bool))
 
     def set_self_promo(self, st: GossipState, mask) -> GossipState:
         """Mark peers (bool[N]) as IHAVE self-promoters: they advertise only
         the ids they originated."""
-        return st._replace(self_promo=torch.as_tensor(
-            mask, device=self.device).to(torch.bool))
+        return st._replace(self_promo=self._local(mask, torch.bool))
 
     def set_subscribed(self, st: GossipState, sub) -> GossipState:
         """Change topic membership (bool[N]): unsubscribing prunes the
         peer's mesh edges at once, subscribing drops its fanout state."""
-        return self._subscribe(st, torch.as_tensor(
-            sub, device=self.device).to(torch.bool))
+        return self._subscribe(st, self._local(sub, torch.bool))
 
     def _subscribe(self, st: GossipState, sub: torch.Tensor) -> GossipState:
-        nbr_sub = st.nbr_valid & safe_gather(
+        nbr_sub = st.nbr_valid & self._safe_gather(
             sub, decode_index_plane(st.nbrs), False)
         return st._replace(
             subscribed=sub,
@@ -781,7 +950,7 @@ class GossipSub:
         fadd = top_mask(
             torch.where(
                 feligible & ~fkeep,
-                uniform_by_uid(key, (self.n, self.k), None),
+                uniform_by_uid(key, (self.nl, self.k), self._uid),
                 -torch.inf,
             ),
             fwant,
@@ -792,13 +961,15 @@ class GossipSub:
     def _heartbeat(self, st: GossipState) -> GossipState:
         p, sp = self.params, self.score_params
         n, k = self.n, self.k
+        pm = self.peer_mesh
         khb, kgossip, kiwant, kfan, kpx, knext = rng.split(st.key, 6).unbind(0)
 
         # Fused prologue: one clipped (jidx, ridx) pair shared by scores,
         # mesh and PX; px_rewire reuses heartbeat_mesh's bitfield gather.
+        # A rank of the sharded rollout always clips here, to the global N.
         edge_idx = (
             (torch.clamp(st.nbrs, 0, n - 1), torch.clamp(st.rev, 0, k - 1))
-            if self.fused_prologue else None
+            if self.fused_prologue or pm is not None else None
         )
 
         c = scoring_ops.tick_mesh_clocks(
@@ -807,7 +978,7 @@ class GossipSub:
         g = scoring_ops.decay_global_counters(st.gcounters, sp)
         scores = scoring_ops.neighbor_scores(
             c, g, st.nbrs, st.nbr_valid, sp,
-            jidx=None if edge_idx is None else edge_idx[0],
+            jidx=None if edge_idx is None else edge_idx[0], pm=pm,
         )
 
         part = st.alive & st.subscribed
@@ -823,8 +994,10 @@ class GossipSub:
             st.backoff, st.outbound, do_og,
             og_threshold=sp.opportunistic_graft_threshold,
             ignore_backoff=self.graft_spammers,
+            uid=self._uid,
             edge_idx=edge_idx,
             with_px_offer=self.fused_prologue,
+            pm=pm,
         )
         new_mesh, grafted, pruned, backoff, bo_violations = hb_out[:5]
         px_offer_ok = hb_out[5] if self.fused_prologue else None
@@ -835,17 +1008,20 @@ class GossipSub:
         px = px_rewire(
             kpx, st.nbrs, st.rev, st.nbr_valid, st.outbound, backoff,
             new_mesh, pruned, scores, st.alive, sp.accept_px_threshold,
+            uid=self._uid,
             edge_idx=edge_idx,
             offer_ok=px_offer_ok,
+            pm=pm,
         )
         # The reference refreshes the adjacency caches under lax.cond when a
-        # PX edge formed; both branches agree otherwise.
-        rewired = px.connected.any()
+        # PX edge formed anywhere; both branches agree otherwise.
+        rewired = px.connected.any() if pm is None else pm.any(px.connected)
         edge_live = torch.where(
-            rewired, compute_edge_live(px.nbr_valid, px.nbrs, st.alive),
+            rewired, self._edge_live(px.nbr_valid, px.nbrs, st.alive),
             st.edge_live)
         nbr_sub = torch.where(
-            rewired, px.nbr_valid & safe_gather(st.subscribed, px.nbrs, False),
+            rewired,
+            px.nbr_valid & self._safe_gather(st.subscribed, px.nbrs, False),
             st.nbr_sub)
 
         have_w, gossip_w = self.gossip_window_masks(st)
@@ -853,7 +1029,7 @@ class GossipSub:
         # IHAVE/IWANT collapsed at the heartbeat: grants land two rounds
         # later through iwant_pend_w -> gossip_pend_w.  Self-promoters
         # advertise only ids they originated.
-        serve_ok = ~safe_gather(st.gossip_mute, px.nbrs, True)
+        serve_ok = ~self._safe_gather(st.gossip_mute, px.nbrs, True)
         gossip_edges = edge_live & nbr_sub
         if self.direct_edges is not None:
             gossip_edges = gossip_edges & ~self.direct_edges
@@ -865,16 +1041,32 @@ class GossipSub:
         x = exchange_prep(
             kgossip, kiwant, adv_src, new_mesh, px.nbrs, px.rev,
             gossip_edges, part, scores, gossip_w, p, sp.gossip_threshold,
-            serve_ok,
+            serve_ok, uid=self._uid, pm=pm,
         )
-        iwant_pend_w, broken_p = cuda_gossip.exchange_select(
-            x.jidx_p, x.adv_ok_p, x.accept_p, x.serve_p, x.rows, have_w,
-            part, p.max_ihave_length, p.max_iwant_length,
-        )
+        if pm is None:
+            iwant_pend_w, broken_p = cuda_gossip.exchange_select(
+                x.jidx_p, x.adv_ok_p, x.accept_p, x.serve_p, x.rows, have_w,
+                part, p.max_ihave_length, p.max_iwant_length,
+            )
+        else:
+            iwant_pend_w, broken_p = cuda_gossip.exchange_select_sharded(
+                pm, x.jidx_p, x.adv_ok_p, x.accept_p, x.serve_p, x.rows,
+                have_w, part, p.max_ihave_length, p.max_iwant_length,
+            )
         broken = broken_p.gather(1, x.inv.long())
         # P7: broken promises charge the advertiser (by remote id).
         promise_ids = torch.where(px.nbr_valid, px.nbrs, n).reshape(-1)
-        promise_viol = segment_sum(broken.reshape(-1), promise_ids, n + 1)[:n]
+        if pm is None:
+            promise_viol = segment_sum(
+                broken.reshape(-1), promise_ids, n + 1)[:n]
+        else:
+            # The counts are whole numbers: an integer scatter onto the
+            # advertisers' rows, added over the ranks, is the float
+            # segment_sum bit for bit.
+            counts = torch.zeros(n + 1, dtype=torch.int32, device=self.device)
+            counts.index_add_(0, promise_ids.long(),
+                              broken.reshape(-1).to(torch.int32))
+            promise_viol = pm.local(pm.sum(counts)[:n]).to(torch.float32)
         g = g._replace(behaviour_penalty=g.behaviour_penalty + promise_viol)
 
         # Fanout excludes direct edges (go's getPeers filter).
@@ -953,19 +1145,30 @@ class GossipSub:
         if self.max_edge_delay:
             jrows = torch.clamp(st.nbrs, 0, self.n - 1)
             plane = torch.remainder(st.step - 1 - st.edge_delay, dpl)
-            fresh_src = st.fresh_hist.reshape(self.n * dpl, self.w)[
-                (jrows * dpl + plane).long()]
+            hist_rows = st.fresh_hist.reshape(self.nl * dpl, self.w)
+            if self.peer_mesh is None:
+                fresh_src = hist_rows[(jrows * dpl + plane).long()]
+            else:  # a sender's D planes are contiguous rows of its rank's
+                fresh_src = self.peer_mesh.gather(
+                    hist_rows, jrows.long() * dpl + plane)
         # IDONTWANT suppression sees the receiver's pre-fold possession; the
         # reference turns it off under per-edge delay.
         idontwant = self.params.idontwant and not self.max_edge_delay
         idw = st.have_w if idontwant else None
         if idontwant and self.params.idontwant_wire_lag:
             idw = st.have_w & ~st.fresh_w
-        out = cuda_gossip.propagate(
-            relay_mesh, st.nbrs, st.edge_live, st.alive, have_w,
-            st.fresh_w, valid_w, fresh_src=fresh_src, idontwant=idontwant,
-            idw_have_w=idw,
-        )
+        if self.peer_mesh is None:
+            out = cuda_gossip.propagate(
+                relay_mesh, st.nbrs, st.edge_live, st.alive, have_w,
+                st.fresh_w, valid_w, fresh_src=fresh_src, idontwant=idontwant,
+                idw_have_w=idw,
+            )
+        else:
+            out = cuda_gossip.propagate_sharded(
+                self.peer_mesh, relay_mesh, st.nbrs, st.edge_live, st.alive,
+                have_w, st.fresh_w, valid_w, fresh_src=fresh_src,
+                idontwant=idontwant, idw_have_w=idw,
+            )
         if ingress_ok is not None:
             # A closed receiver's eager arrivals are dropped: no possession,
             # no relay, no score credit.  ``have_w`` going into K1 already
@@ -1033,6 +1236,8 @@ class GossipSub:
         taken on the host from ``st.step``."""
         out = self._propagate(st, with_receipts)
         st, per_msg = out if with_receipts else (out, None)
+        if per_msg is not None and self.peer_mesh is not None:
+            per_msg = self.peer_mesh.sum(per_msg)
         if st.step % self.heartbeat_steps == self.heartbeat_steps - 1:
             st = self._heartbeat(st)
         st = st._replace(step=st.step + 1)
@@ -1062,10 +1267,7 @@ class GossipSub:
             for _ in range(n_steps):
                 st = self._step_wide(st)
             return self._narrow_indices(st), None
-        hist = hist_ops.latency_histogram_seed(
-            st.first_step, st.msg_birth, st.msg_used & st.msg_valid,
-            st.alive & st.subscribed, FLIGHT_HIST_BINS,
-        )
+        hist = self._hist_seed(st)
         rounds: List[Dict[str, torch.Tensor]] = []
         first = st.step + 1
         for _ in range(n_steps):
@@ -1082,6 +1284,27 @@ class GossipSub:
         record_ys["step"] = torch.arange(first, first + n_steps,
                                          dtype=torch.int32, device=self.device)
         return self._narrow_indices(st), record_ys
+
+    def _hist_seed(self, st: GossipState) -> torch.Tensor:
+        """The recorder's cumulative latency histogram at the start of a
+        rollout (``latency_histogram_seed``); sharded, its counts and its
+        fast-path test add over the ranks in one integer all-reduce."""
+        args = (st.first_step, st.msg_birth, st.msg_used & st.msg_valid,
+                st.alive & st.subscribed, FLIGHT_HIST_BINS)
+        if self.peer_mesh is None:
+            return hist_ops.latency_histogram_seed(*args)
+        counted = ((st.first_step >= 0) & args[3][:, None]
+                   & args[2][None, :])
+        late = (counted & (st.first_step != st.msg_birth[None, :])).sum(
+            dtype=torch.int64)
+        full = hist_ops.latency_histogram(*args).to(torch.int64)
+        v = self.peer_mesh.sum(torch.cat([
+            full, counted.sum(dtype=torch.int64)[None], late[None]]))
+        cheap = torch.zeros(FLIGHT_HIST_BINS, dtype=torch.int32,
+                            device=self.device)
+        cheap[0] = v[FLIGHT_HIST_BINS].to(torch.int32)
+        return torch.where(v[FLIGHT_HIST_BINS + 1] == 0, cheap,
+                           v[:FLIGHT_HIST_BINS].to(torch.int32))
 
     # -- scenario engine ----------------------------------------------------
 
@@ -1240,7 +1463,10 @@ class GossipSub:
         latency histogram at bin 0.  The record comes back as host numpy
         channels, the reference's set, read once after the last round.
         ``silence`` assumes the ideal fabric (the compiler rejects it under
-        ``max_edge_delay``)."""
+        ``max_edge_delay``).  Not sharded."""
+        if self.peer_mesh is not None:
+            raise NotImplementedError(
+                "rollout_events runs unsharded (mesh=None)")
         n_steps = int(events.kill.shape[0])
         rows = _StagedEvents(self, events)
         att = None
@@ -1294,9 +1520,13 @@ class GossipSub:
                             lat_hist: torch.Tensor) -> Dict[str, torch.Tensor]:
         """One round's telemetry as device scalars plus the int32[B]
         cumulative latency histogram (``step`` is added by ``rollout``).
-        Score quantiles are over each peer's mean live-neighbor score."""
+        Score quantiles are over each peer's mean live-neighbor score.
+        Sharded, the counts add over the ranks in one integer all-reduce,
+        the degree maximum in another, and the per-peer scores and
+        participation are all-gathered, so the quantiles read the whole
+        run's values as the reference's do."""
+        pm = self.peer_mesh
         part = st.alive & st.subscribed
-        part_n = torch.clamp(part.sum(dtype=torch.int32), min=1)
         in_window = st.msg_used & st.msg_valid
         n_msgs = torch.clamp(in_window.sum(dtype=torch.int32), min=1)
         mesh_deg = (st.mesh & st.nbr_valid).sum(dim=1, dtype=torch.int32)
@@ -1305,17 +1535,28 @@ class GossipSub:
             st.nbr_valid.sum(dim=1, dtype=torch.int32), min=1)
         peer_score = _seq_row_sum(
             torch.where(st.nbr_valid, st.scores, 0.0)) / live_slots
+        counts = torch.stack([
+            st.alive.sum(dtype=torch.int32), part.sum(dtype=torch.int32),
+            deg_alive.sum(dtype=torch.int32),
+            bitpack.popcount(st.gossip_pend_w).sum(dtype=torch.int32),
+        ])
+        deg_max = mesh_deg.max()
+        if pm is not None:
+            counts = pm.sum(counts)
+            deg_max = pm.max(deg_max)
+            peer_score = pm.all_gather_rows(peer_score)
+            part = pm.all_gather_rows(part)
+        part_n = torch.clamp(counts[1], min=1)
         score_q = hist_ops.binned_quantiles(peer_score, part, (0.1, 0.5, 0.9))
         return {
-            "peers_alive": st.alive.sum(dtype=torch.int32),
+            "peers_alive": counts[0],
             "delivery_frac": lat_hist.sum(dtype=torch.int32) / (part_n * n_msgs),
-            "mesh_degree_mean": deg_alive.sum(dtype=torch.int32) / part_n,
-            "mesh_degree_max": mesh_deg.max(),
+            "mesh_degree_mean": counts[2] / part_n,
+            "mesh_degree_max": deg_max,
             "score_p10": score_q[0],
             "score_p50": score_q[1],
             "score_p90": score_q[2],
-            "gossip_pending": bitpack.popcount(
-                st.gossip_pend_w).sum(dtype=torch.int32),
+            "gossip_pending": counts[3],
             "lat_hist": lat_hist,
         }
 
@@ -1324,11 +1565,19 @@ class GossipSub:
     def delivery_stats(self, st: GossipState):
         """(frac f32[M], p50, p99): per-message delivery fraction over
         alive+subscribed peers (from ``first_step``, so the seen-cache TTL
-        never un-counts a delivery) and latency percentiles in rounds."""
+        never un-counts a delivery) and latency percentiles in rounds.
+        Sharded, the counts add over the ranks as integers and the
+        percentiles read the whole run's latencies through a histogram of
+        their whole-round values (every latency is at most ``st.step``),
+        whose order statistics are the sorted values the reference
+        indexes."""
+        pm = self.peer_mesh
         part = st.alive & st.subscribed
         part_n = part.sum(dtype=torch.int32)
         delivered = ((st.first_step >= 0) & part[:, None]).sum(
             dim=0, dtype=torch.int32)
+        if pm is not None:
+            part_n, delivered = pm.sum(part_n), pm.sum(delivered)
         frac = torch.where(
             st.msg_used & st.msg_valid,
             delivered / torch.clamp(part_n, min=1),
@@ -1342,6 +1591,15 @@ class GossipSub:
             & st.msg_valid[None, :]
             & part[:, None]
         )
-        p50 = _nanquantile_int(lat, valid_lat, 0.5)
-        p99 = _nanquantile_int(lat, valid_lat, 0.99)
-        return frac, p50, p99
+        if pm is None:
+            p50 = _nanquantile_int(lat, valid_lat, 0.5)
+            p99 = _nanquantile_int(lat, valid_lat, 0.99)
+            return frac, p50, p99
+        top = int(st.step) + 1
+        hist = torch.zeros(top + 1, dtype=torch.int64, device=self.device)
+        hist.index_add_(
+            0, torch.where(valid_lat, lat, top).reshape(-1).long(),
+            torch.ones(lat.numel(), dtype=torch.int64, device=self.device))
+        cum = torch.cumsum(pm.sum(hist)[:top], dim=0)
+        return frac, _hist_quantile_int(cum, 0.5), _hist_quantile_int(
+            cum, 0.99)

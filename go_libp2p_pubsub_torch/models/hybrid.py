@@ -68,7 +68,7 @@ from .gossipsub import (
     record_to_host,
 )
 from .multitopic import _StagedRows
-from .rlnc import encode, fold, no_peer_uid
+from .rlnc import encode, fold
 
 
 class HybridState(NamedTuple):
@@ -118,14 +118,15 @@ class HybridGossipSub:
                 f"lo={switch_lo} hi={switch_hi}")
         if not (0.0 < ewma_alpha <= 1.0):
             raise ValueError(f"ewma_alpha must be in (0, 1], got {ewma_alpha}")
-        no_peer_uid(peer_uid)
         # The embedded eager plane on the ideal fabric (no per-edge delay,
-        # no direct peering), as in the reference.
+        # no direct peering), as in the reference; a placement's
+        # ``peer_uid`` keys its draws and the coded plane's coefficients.
         self.gs = GossipSub(
             n_peers=n_peers, n_slots=n_slots, conn_degree=conn_degree,
             msg_window=msg_window, params=params, score_params=score_params,
             heartbeat_steps=heartbeat_steps, builder=builder,
-            index_dtype_override=index_dtype_override, device=device,
+            index_dtype_override=index_dtype_override, peer_uid=peer_uid,
+            device=device,
         )
         self.device = self.gs.device
         self.gen_size = gen_size
@@ -265,7 +266,7 @@ class HybridGossipSub:
         # Coded plane.  The key splits outside the reference's cond; the
         # branch is computed every round and selected below.
         kc, kcn = rng.split(st.key_coded, 2).unbind(0)
-        frag = encode(kc, st.basis, k, self.use_mxu)
+        frag = encode(kc, st.basis, k, self.use_mxu, self.gs.peer_uid)
         flat_idx = j * k + torch.clamp(g2.rev, 0, k - 1)
         ok_edge = (st.coded & g2.edge_live & accept[:, None]
                    & (g2.alive & g2.subscribed)[:, None])

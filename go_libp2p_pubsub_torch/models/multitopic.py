@@ -97,6 +97,66 @@ class MultiTopicState(NamedTuple):
     step: int                   # round counter, owned by the host
 
 
+# Sharding classification of MultiTopicState for a peer-sharded run (the
+# reference's ``MULTITOPIC_*``): per-topic leaves stack as [T, N, ...] so
+# their peer dim is axis 1; shared leaves lead with N; message metadata and
+# per-topic PRNG keys replicate.  Exhaustive by name -- adding a field
+# without classifying it here fails ``multitopic_state_shardings``.  (The
+# sharded multitopic rollout itself is not ported: ROADMAP.)
+MULTITOPIC_REPLICATED_FIELDS = frozenset({
+    "msg_valid", "msg_birth", "msg_active", "msg_used", "keys", "step",
+})
+MULTITOPIC_PEER_DIMS = {
+    name: 1
+    for name in (
+        "subscribed", "edge_live", "mesh", "fanout", "fanout_age", "backoff",
+        "counters", "have_w", "fresh_w", "gossip_pend_w", "iwant_pend_w",
+        "pend_hold", "first_step",
+    )
+}
+_MT_PEER_DIM0_FIELDS = frozenset({
+    "nbrs", "rev", "nbr_valid", "outbound", "alive", "gcounters", "scores",
+    "gossip_mute", "gossip_delay",
+})
+
+
+def multitopic_state_shardings(st: "MultiTopicState", n_peers: int,
+                               world: int) -> Dict[str, Optional[int]]:
+    """Per ``MultiTopicState`` field: its peer axis (0 for shared leaves,
+    1 for topic-stacked ones) or None (replicated), for a mesh of
+    ``world`` ranks.  Validates the classification above is exhaustive and
+    every peer-dim leaf's peer axis is ``n_peers`` first, as the
+    reference does, then the generic rules (``parallel.mesh.state_blocks``:
+    divisibility, unknown or doubly classified names)."""
+    from ..parallel.mesh import state_blocks
+
+    unclassified = (
+        set(st._fields) - MULTITOPIC_REPLICATED_FIELDS
+        - set(MULTITOPIC_PEER_DIMS) - _MT_PEER_DIM0_FIELDS
+    )
+    if unclassified:
+        raise ValueError(
+            f"MultiTopicState fields without a sharding rule: "
+            f"{sorted(unclassified)}; classify them in multitopic.py"
+        )
+    for name in _MT_PEER_DIM0_FIELDS | set(MULTITOPIC_PEER_DIMS):
+        d = MULTITOPIC_PEER_DIMS.get(name, 0)
+        v = getattr(st, name)
+        for leaf in (v if hasattr(v, "_fields") else (v,)):
+            if getattr(leaf, "ndim", 0) <= d or leaf.shape[d] != n_peers:
+                raise ValueError(
+                    f"peer-dim leaf {name} has shape "
+                    f"{tuple(getattr(leaf, 'shape', ()))}, expected dim {d} "
+                    f"== {n_peers}"
+                )
+    return state_blocks(
+        st, n_peers, world, replicated=MULTITOPIC_REPLICATED_FIELDS,
+        peer_dim={
+            **{f: 0 for f in _MT_PEER_DIM0_FIELDS}, **MULTITOPIC_PEER_DIMS
+        },
+    )
+
+
 def edge_live_stack(nbr_valid, nbrs, topic_alive) -> torch.Tensor:
     """bool[T, N, K]: slot wired and its remote alive in the topic (the
     reference's ``vmap(compute_edge_live)`` over ``topic_alive[T, N]``)."""

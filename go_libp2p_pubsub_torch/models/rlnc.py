@@ -34,8 +34,8 @@ Differences of form, none of which changes a bit of state:
   ``if`` on the numpy row.  ``rollout_events``' record comes back as
   host numpy, read once after the last round.
 
-``peer_uid`` (placement relabeling) arrives with the port's GossipSub
-placement (ROADMAP A10); passing one raises ``NotImplementedError``.
+``peer_uid`` (placement relabeling) keys the coefficient draw on
+canonical identity, as the reference's does (``gf256.coeffs_by_uid``).
 """
 
 from __future__ import annotations
@@ -71,13 +71,6 @@ from .gossipsub import (
 DRAW_BLOCK_ELEMS = 1 << 26
 
 
-def no_peer_uid(peer_uid) -> None:
-    """Refuse placement relabeling, which the port does not have yet."""
-    if peer_uid is not None:
-        raise NotImplementedError(
-            "peer_uid (placement relabeling) is not ported yet: ROADMAP A10")
-
-
 def draw_block(n_slots: int, g: int, kg: int) -> int:
     """Senders whose coefficients are drawn at once (``DRAW_BLOCK_ELEMS``
     elements, at least one sender)."""
@@ -85,10 +78,11 @@ def draw_block(n_slots: int, g: int, kg: int) -> int:
 
 
 def encode(key: torch.Tensor, basis: torch.Tensor, n_slots: int,
-           use_mxu: bool = False) -> torch.Tensor:
+           use_mxu: bool = False,
+           uid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Every sender's coded fragment per (out-slot, generation):
     u8[N, K, G, Kg] = ``gf_combine(coeffs, basis[:, None])`` with
-    ``coeffs = coeffs_by_uid(key, (N, K, G, Kg))`` (the reference's
+    ``coeffs = coeffs_by_uid(key, (N, K, G, Kg), uid)`` (the reference's
     encode), drawn and combined :func:`draw_block` senders at a time."""
     n, g, kg = basis.shape[0], basis.shape[1], basis.shape[2]
     combine = gf256.gf_combine_mxu if use_mxu else gf256.gf_combine
@@ -98,7 +92,7 @@ def encode(key: torch.Tensor, basis: torch.Tensor, n_slots: int,
     for r0 in range(0, n, block):
         r1 = min(n, r0 + block)
         coeffs = gf256.coeffs_by_uid(key, (r1 - r0, n_slots, g, kg),
-                                     row_offset=r0)
+                                     uid, row_offset=r0)
         out[r0:r1] = combine(coeffs, basis[r0:r1, None])
     return out
 
@@ -162,7 +156,6 @@ class RLNC:
             raise ValueError("gen_size must be >= 1")
         if gen_size > 255:
             raise ValueError("gen_size must be <= 255 (GF(256) coefficients)")
-        no_peer_uid(peer_uid)
         self.device = resolve_device(device)
         # The bit-plane matmul form is an optional arm; the table form is
         # the default (the reference's choice off a TPU).
@@ -173,7 +166,17 @@ class RLNC:
         self.gen_size = gen_size
         self.conn_degree = conn_degree
         self.builder = builder
-        self.peer_uid = None
+        # Canonical id of each physical row under a placement relabeling
+        # (``parallel/placement``): the coefficient draw follows it.
+        if peer_uid is None:
+            self.peer_uid = None
+        else:
+            pu = np.asarray(peer_uid)
+            if pu.shape != (n_peers,):
+                raise ValueError(f"peer_uid must be [N={n_peers}]")
+            if not np.array_equal(np.sort(pu), np.arange(n_peers)):
+                raise ValueError("peer_uid must be a permutation of 0..N-1")
+            self.peer_uid = self._t(pu.astype(np.int32))
         if index_dtype_override is None:
             self.idx_dtype = index_dtype(n_peers)
             self.rev_dtype = index_dtype(n_slots)
@@ -191,7 +194,9 @@ class RLNC:
             return id(self)
         return (builder_key, type(self), str(self.device), self.n, self.k,
                 self.m, self.gen_size, self.conn_degree, self.use_mxu,
-                str(self.idx_dtype), str(self.rev_dtype))
+                str(self.idx_dtype), str(self.rev_dtype),
+                None if self.peer_uid is None
+                else bytes(self.peer_uid.cpu().numpy()))
 
     def __eq__(self, other):
         return (type(other) is type(self)
@@ -325,7 +330,7 @@ class RLNC:
                & ~st.silenced)[:, None]
             & (st.msg_active & st.msg_used)[None, :]
         )
-        frag = encode(key_c, st.basis, k, self.use_mxu)
+        frag = encode(key_c, st.basis, k, self.use_mxu, self.peer_uid)
         j = torch.clamp(decode_index_plane(st.nbrs), 0, n - 1).long()
         flat_idx = j * k + torch.clamp(decode_index_plane(st.rev), 0, k - 1)
         accept = (st.alive & st.subscribed

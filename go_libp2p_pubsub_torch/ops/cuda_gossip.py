@@ -36,6 +36,14 @@ Beside each kernel is its plain PyTorch version (``ops/gossip_packed.py``:
 wrapper runs the plain version only when its tensors lie on the CPU; on
 CUDA tensors it launches the kernel or raises.  Each wrapper counts its
 launches in ``<wrapper>.launches``.
+
+The sharded rollout's wrappers (the reference's ``shard_map`` forms,
+``ops/pallas_gossip.py:422-492`` and ``:373-384``) run the same two
+kernels on a rank's block of rows: :func:`propagate_sharded` gathers the
+senders' words through the mesh into K1's ``fresh_src``, and
+:func:`exchange_select_sharded` gathers the advertisers' words table for
+K2 (whose words table may have any row count).  Their launches count in
+:func:`propagate` and :func:`exchange_select`.
 """
 
 from __future__ import annotations
@@ -115,7 +123,7 @@ def _load() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.gossip_propagate.argtypes = [vp] * 15 + [ci] * 5 + [vp]
         lib.gossip_propagate.restype = ci
-        lib.gossip_exchange.argtypes = [vp] * 9 + [ci] * 7 + [vp]
+        lib.gossip_exchange.argtypes = [vp] * 9 + [ci] * 8 + [vp]
         lib.gossip_exchange.restype = ci
         lib.gossip_launch_shape.argtypes = [ci] * 3 + [ctypes.POINTER(ci)]
         lib.gossip_launch_shape.restype = ci
@@ -234,18 +242,20 @@ propagate.launches = 0
 
 
 def exchange_select(
-    jidx_p: torch.Tensor,        # int32[N, K]
+    jidx_p: torch.Tensor,        # int32[N, K] rows of ``rows``
     adv_ok_p: torch.Tensor,      # bool[N, K]
     accept_p: torch.Tensor,      # bool[N, K]
     serve_p: torch.Tensor,       # bool[N, K]
-    rows: torch.Tensor,          # int32[N, W]
+    rows: torch.Tensor,          # int32[R, W] (R = N on one device)
     have_dedup_w: torch.Tensor,  # int32[N, W]
     alive: torch.Tensor,         # bool[N]
     max_ihave: int,
     max_iwant: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """IHAVE cap + IWANT select over priority-ordered slots (kernel K2;
-    same contract as ``gossip_packed.exchange_select``)."""
+    same contract as ``gossip_packed.exchange_select``).  The words table
+    ``rows`` may hold any number of rows; ``jidx_p`` indexes it (the
+    kernel clamps to its row count)."""
     if rows.device.type == "cpu":
         return gossip_packed.exchange_select(
             jidx_p, adv_ok_p, accept_p, serve_p, rows, have_dedup_w, alive,
@@ -262,7 +272,7 @@ def exchange_select(
         ("adv_ok_p", adv_ok_p, torch.bool, (n, k)),
         ("accept_p", accept_p, torch.bool, (n, k)),
         ("serve_p", serve_p, torch.bool, (n, k)),
-        ("rows", rows, torch.int32, (n, w)),
+        ("rows", rows, torch.int32, (max(rows.shape[0], 1), w)),
         ("have_dedup_w", have_dedup_w, torch.int32, (n, w)),
         ("alive", alive, torch.bool, (n,)),
     ):
@@ -279,7 +289,8 @@ def exchange_select(
     code = lib.gossip_exchange(
         _ptr(jidx_p), _ptr(adv_ok_p), _ptr(accept_p), _ptr(serve_p),
         _ptr(rows), _ptr(have_dedup_w), _ptr(alive), _ptr(pend),
-        _ptr(broken_p), n, k, w, max_ihave, max_iwant, variant, grid,
+        _ptr(broken_p), n, rows.shape[0], k, w, max_ihave, max_iwant,
+        variant, grid,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(code, "gossip_exchange launch")
@@ -288,6 +299,68 @@ def exchange_select(
 
 
 exchange_select.launches = 0
+
+
+# -- the sharded rollout's wrappers (a rank's block of rows) -----------------
+
+
+def propagate_sharded(
+    pm,                       # parallel.mesh.PeerMesh
+    mesh: torch.Tensor,       # bool[B, K]  (the rank's block)
+    nbrs: torch.Tensor,       # int32[B, K] GLOBAL peer ids
+    edge_live: torch.Tensor,  # bool[B, K]
+    alive: torch.Tensor,      # bool[B]
+    have_w: torch.Tensor,     # int32[B, W]
+    fresh_w: torch.Tensor,    # int32[B, W]
+    valid_w: torch.Tensor,    # int32[W]
+    fresh_src: Optional[torch.Tensor] = None,  # int32[B, K, W]
+    idontwant: bool = False,
+    idw_have_w: Optional[torch.Tensor] = None,  # int32[B, W]
+) -> PropagatePackedOut:
+    """One eager-push round on a rank's block (the reference's
+    ``propagate_packed_pallas_sharded``, ``ops/pallas_gossip.py:422-492``):
+    the one cross-rank read, the senders' fresh words ``fresh_w[nbrs]`` at
+    global ids, is gathered through the mesh (all-gather, or the
+    split-gather ring when ``pm.ring``) into ``fresh_src`` [B, K, W], which
+    the unchanged K1 (:func:`propagate`) reads on the block.  In per-edge
+    delay mode the caller's ``fresh_src`` passes straight through."""
+    if fresh_src is None:
+        fresh_src = pm.gather(fresh_w, torch.clamp(nbrs, 0, pm.n - 1))
+    return propagate(mesh, nbrs, edge_live, alive, have_w, fresh_w, valid_w,
+                     fresh_src=fresh_src.contiguous(), idontwant=idontwant,
+                     idw_have_w=idw_have_w)
+
+
+def exchange_select_sharded(
+    pm,                          # parallel.mesh.PeerMesh
+    jidx_p: torch.Tensor,        # int32[B, K] GLOBAL advertiser ids
+    adv_ok_p: torch.Tensor,      # bool[B, K]
+    accept_p: torch.Tensor,      # bool[B, K]
+    serve_p: torch.Tensor,       # bool[B, K]
+    rows: torch.Tensor,          # int32[B, W] the block's advertisable words
+    have_dedup_w: torch.Tensor,  # int32[B, W]
+    alive: torch.Tensor,         # bool[B]
+    max_ihave: int,
+    max_iwant: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 on a rank's block (the ``device_mesh`` arm of the reference's
+    ``gossip_exchange_packed_pallas``, ``ops/pallas_gossip.py:373-384``):
+    the prep's cross-rank read of the advertisers' words goes through the
+    mesh first -- the whole table by all-gather, or under ``pm.ring`` the
+    [B, K, W] cube of the block's advertisers by the ring, indexed in
+    place -- then :func:`exchange_select` runs row-locally on the block,
+    with no collective inside."""
+    b, k = jidx_p.shape
+    if pm.ring:
+        table = pm.gather(rows, jidx_p).reshape(b * k, rows.shape[1])
+        idx = torch.arange(b * k, dtype=torch.int32,
+                           device=rows.device).reshape(b, k)
+    else:
+        table = pm.all_gather_rows(rows)
+        idx = jidx_p
+    return exchange_select(idx, adv_ok_p, accept_p, serve_p,
+                           table.contiguous(), have_dedup_w, alive,
+                           max_ihave, max_iwant)
 
 
 def reset_launches() -> None:

@@ -154,15 +154,18 @@ def coeffs_by_uid(
     row_offset: int = 0,
 ) -> torch.Tensor:
     """Random u8 coefficients, ``jax.random.randint(key, shape, 0, 256)``
-    cast to uint8; row axis 0 is the peer.  ``uid`` (int64[N]) gathers the
-    whole draw through canonical peer ids; ``row_offset`` draws rows
-    ``[row_offset, row_offset + shape[0])`` of a larger draw alone."""
-    r = rng.randint(key, shape, 0, 256, row_offset=row_offset).to(torch.uint8)
+    cast to uint8; row axis 0 is the peer.  ``row_offset`` draws rows
+    ``[row_offset, row_offset + shape[0])`` of a larger draw alone.  Under
+    a placement relabeling ``uid`` (int[N], physical row -> canonical id)
+    keys each row on canonical identity: physical rows ``[row_offset,
+    row_offset + shape[0])`` draw the canonical rows ``uid`` names there,
+    alone (``rng.randint(rows=)``), bit for bit the reference's whole draw
+    gathered at ``uid``."""
     if uid is None:
-        return r
-    if row_offset:
-        raise ValueError("coeffs_by_uid: uid gathers the whole draw")
-    return r[uid]
+        return rng.randint(key, shape, 0, 256,
+                           row_offset=row_offset).to(torch.uint8)
+    rows = uid[row_offset:row_offset + shape[0]]
+    return rng.randint(key, shape, 0, 256, rows=rows).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------

@@ -33,9 +33,16 @@ def uniform_by_uid(
     maxval: float = 1.0,
 ) -> torch.Tensor:
     """Per-peer uniform draw keyed on canonical peer identity: row i of the
-    draw is peer id i, gathered through ``uid`` under a renumbering."""
-    r = rng.uniform(key, shape, minval=minval, maxval=maxval)
-    return r if uid is None else r[uid.long()]
+    draw is peer id i.  Under a renumbering (``uid`` given, one canonical id
+    per row of ``shape``) the rows ``uid`` of the draw are drawn alone
+    (``rng.uniform_rows``), bit for bit the reference's ``r[uid]``: a rank
+    of the sharded rollout draws only the rows it owns."""
+    if uid is None:
+        return rng.uniform(key, shape, minval=minval, maxval=maxval)
+    if uid.shape[0] != shape[0]:
+        raise ValueError(f"uniform_by_uid: {uid.shape[0]} ids for {shape}")
+    return rng.uniform_rows(key, uid, shape[1:], minval=minval,
+                            maxval=maxval)
 
 
 def gossip_emission_mask(
@@ -103,13 +110,17 @@ def heartbeat_mesh(
     uid: Optional[torch.Tensor] = None,
     edge_idx: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     with_px_offer: bool = False,
+    pm=None,
 ) -> Tuple[torch.Tensor, ...]:
     """Mesh maintenance: prune negative-score and over-degree links, graft
     toward D, then agree on each edge from both endpoints' views.
 
     Returns (new_mesh, grafted, pruned, new_backoff, bo_violations), plus
     ``score_rev_ok`` when ``with_px_offer``; the rules are the reference's
-    (see its docstring in the JAX package)."""
+    (see its docstring in the JAX package).  On a rank of the sharded
+    rollout (``pm``, a ``parallel.mesh.PeerMesh``; the planes are the
+    rank's block and ``edge_idx`` is required, clipped to the global N)
+    the remote's views cross ranks through ``pm.gather_elems``."""
     n, k = nbrs.shape
     dev = nbrs.device
     if backoff is None:
@@ -191,6 +202,8 @@ def heartbeat_mesh(
     # Edge agreement: the remote's four views ride one int32 bitfield
     # gathered at the paired slot (jidx, ridx).
     if edge_idx is None:
+        if pm is not None:
+            raise ValueError("heartbeat_mesh: a sharded call needs edge_idx")
         jidx = torch.clamp(nbrs, 0, n - 1)
         ridx = torch.clamp(rev, 0, k - 1)
     else:
@@ -201,7 +214,11 @@ def heartbeat_mesh(
         | (score_ok.to(torch.int32) << 2)
         | (bo_ok.to(torch.int32) << 3)
     )
-    flags_rev = flags[jidx.long(), ridx.long()]
+    if pm is None:
+        flags_rev = flags[jidx.long(), ridx.long()]
+    else:  # four bits: the plane crosses ranks as bytes
+        flags_rev = pm.gather_elems(
+            flags.to(torch.uint8), jidx, ridx).to(torch.int32)
     keep_rev = (flags_rev & 1) > 0
     graft_rev = (flags_rev & 2) > 0
     score_rev_ok = (flags_rev & 4) > 0

@@ -15,6 +15,9 @@ CUDA kernels in ``ops/cuda_gossip.py``:
 
 The unfused :func:`ihave_advertise_packed` / :func:`iwant_select_packed`
 pair stays as the reference the fused exchange is tested against.
+
+:func:`ring_gather_rows` is the sharded rollout's split gather (the
+reference's ``ring_gather_rows``, over a ``parallel.mesh.PeerMesh``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,42 @@ from ..config import GossipSubParams
 from . import bitpack
 from .bitpack import as_mask, popcount_words
 from .gossip import gossip_emission_mask, iwant_priority
+from .graphs import take_rows
+
+
+def ring_gather_rows(table: torch.Tensor, idx: torch.Tensor, mesh
+                     ) -> torch.Tensor:
+    """``whole[clip(idx)]`` for this rank's block ``table`` of a row-sharded
+    ``whole`` table (``mesh.world * table.shape[0]`` rows), at global row
+    ids ``idx``, as local indexing plus a ring of block exchanges.
+
+    Round r has rank d hold the block owned by rank (d + r) mod R and
+    resolve exactly the indices that land in it: round 0 is the
+    intra-shard half (local indexing, no communication; a locality-aware
+    placement makes it resolve most rows), rounds 1 ... R-1 the
+    cross-shard half.  The next block is posted (``PeerMesh.shift``:
+    ``batch_isend_irecv``, send to d - 1, receive from d + 1) BEFORE the
+    current block's gather runs, so the transfer overlaps the local
+    compute, with never more than one extra block resident.  Every index
+    is resolved by exactly one round, so the result is ``whole[clip(idx)]``
+    bit for bit (the reference's callers clip; this clips itself)."""
+    n_sh = mesh.world
+    blk = table.shape[0]
+    idx = torch.clamp(idx, 0, n_sh * blk - 1).long()
+    out = torch.zeros(idx.shape + table.shape[1:], dtype=table.dtype,
+                      device=table.device)
+    buf = table.contiguous()
+    for r in range(n_sh):
+        nxt = mesh.shift(buf) if r + 1 < n_sh else None
+        owner = (mesh.rank + r) % n_sh
+        loc = idx - owner * blk
+        hit = (loc >= 0) & (loc < blk)
+        rows = take_rows(buf, torch.clamp(loc, 0, blk - 1))
+        shape_up = hit.reshape(hit.shape + (1,) * (rows.ndim - hit.ndim))
+        out = torch.where(shape_up, rows, out)
+        if nxt is not None:
+            buf = nxt()
+    return out
 
 
 def _gather_packed_bits(
@@ -204,21 +243,34 @@ class ExchangeInputs(NamedTuple):
 def exchange_prep(
     key_adv, key_iwant, have_w, mesh, nbrs, rev, edge_live, alive, scores,
     gossip_w, p: GossipSubParams, gossip_threshold: float, serve_ok,
-    uid=None,
+    uid=None, pm=None,
 ) -> ExchangeInputs:
     """Emission choice, priority permutation and the permuted [N, K]
-    planes: everything of the fused exchange that stays in PyTorch."""
+    planes: everything of the fused exchange that stays in PyTorch.  On a
+    rank of the sharded rollout (``pm``; the planes are its block, ``nbrs``
+    hold global ids) the advertisers' choice bits cross ranks bit-packed
+    along the slot axis; ``rows`` stays the block's own words, which K2's
+    sharded wrapper gathers."""
     n, k = nbrs.shape
+    if pm is not None:
+        n_all = pm.n
     chosen = gossip_emission_mask(
         key_adv, mesh, edge_live, alive, scores, p, gossip_threshold, uid
     )
     perm, inv = iwant_priority(key_iwant, n, k, uid)
     perm_l = perm.long()
     take = lambda x: x.gather(1, perm_l)  # noqa: E731
-    jidx_p = take(torch.clamp(nbrs, 0, n - 1))
+    jidx_p = take(torch.clamp(nbrs, 0, (n if pm is None else n_all) - 1))
     ridx_p = take(torch.clamp(rev, 0, k - 1))
     edge_live_p = take(edge_live)
-    adv_ok_p = _gather_packed_bits(chosen, jidx_p, ridx_p) & edge_live_p
+    if pm is None:
+        towards = _gather_packed_bits(chosen, jidx_p, ridx_p)
+    else:
+        ridx_l = ridx_p.long()
+        words = pm.gather(bitpack.pack(chosen), jidx_p)  # [B, K, ceil(K/32)]
+        w = words.gather(2, (ridx_l // 32)[:, :, None])[..., 0]
+        towards = (bitpack.srl(w, ridx_l % 32) & 1) > 0
+    adv_ok_p = towards & edge_live_p
     accept_p = edge_live_p & (take(scores) >= gossip_threshold)
     return ExchangeInputs(
         jidx_p=jidx_p.to(torch.int32).contiguous(),

@@ -123,6 +123,26 @@ def safe_gather(arr: torch.Tensor, idx: torch.Tensor, fill=0) -> torch.Tensor:
     return torch.where(valid, out, fill)
 
 
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``: rows of ``table`` at int ``idx`` (in range).  Rows of
+    a multiple of 16 bytes (the [N, 4] and [N, 8] word planes) go through
+    a flat gather of single elements, which the H100 runs over an order of
+    magnitude faster than PyTorch's advanced indexing of such rows (phase
+    ``sharded`` of ``chip_smoke.py`` times the gathers).  The sharded
+    rollout's row gathers use it; the unsharded model keeps its indexing
+    unchanged."""
+    idx = idx.long()
+    inner = tuple(table.shape[1:])
+    width = 1
+    for d in inner:
+        width *= d
+    if table.ndim < 2 or (width * table.element_size()) % 16:
+        return table[idx]
+    flat = table.reshape(-1)
+    cols = torch.arange(width, dtype=torch.int64, device=table.device)
+    return flat[idx[..., None] * width + cols].reshape(idx.shape + inner)
+
+
 def top_mask(vals: torch.Tensor, count, kmax=None) -> torch.Tensor:
     """bool[N, K] mask of the per-row top-``count`` finite entries of
     ``vals`` (ineligible entries must be -inf; ties break to the lowest

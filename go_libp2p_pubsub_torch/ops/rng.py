@@ -10,7 +10,11 @@ draws them with ``jax_threefry_partitionable`` on (the default since jax
 0.5): the counter of element i of a draw is the 64-bit flat index i,
 split into a (hi, lo) pair of 32-bit words.  So rows ``[r0, r0 + B)`` of
 a draw are the whole draw's rows: ``row_offset`` draws them alone, which
-bounds the memory of a large draw taken in blocks.
+bounds the memory of a large draw taken in blocks.  The same holds for
+any set of rows: :func:`uniform_rows` and ``randint(rows=)`` compute each
+element's counter from its canonical flat index (``row * inner + j``),
+so a rank of the sharded rollout draws only the rows it owns, equal bit
+for bit to ``uniform(key, shape)[rows]``.
 
 Keys are int32[2] tensors holding the uint32 bit patterns of jax's raw
 ``uint32[2]`` keys.  torch's CPU ``uint32`` has no shifts, so values
@@ -148,11 +152,58 @@ def uniform(
     return torch.clamp(fma(floats, span, lo), min=lo)
 
 
-def _bits32(key: torch.Tensor, shape, row_offset: int = 0) -> torch.Tensor:
+def _bits_rows(key: torch.Tensor, rows: torch.Tensor, inner) -> torch.Tensor:
+    """32 random bits (the two threefry output words XORed, int32 bit
+    patterns) of rows ``rows`` of a draw whose trailing axes are ``inner``:
+    element ``(r, j)`` hashes its flat index ``rows[r] * prod(inner) + j``
+    -> int32[len(rows), *inner]."""
+    k = _u32(key)
+    ks = _key_schedule(k[0], k[1])
+    inner = tuple(int(d) for d in inner)
+    width = 1
+    for d in inner:
+        width *= d
+    rows = rows.to(device=key.device, dtype=torch.int64)
+    flat = (rows[:, None] * width + torch.arange(
+        width, dtype=torch.int64, device=key.device)[None, :]).reshape(
+        (rows.shape[0],) + inner)
+    # Both counter words from the int64 index: no bound on the rows is read
+    # from the device.
+    x0, x1 = _rounds(ks, (flat >> 32).to(torch.int32) + ks[0],
+                     _i32(flat & _M32) + ks[1])
+    return x0 ^ x1
+
+
+def uniform_rows(
+    key: torch.Tensor,
+    rows: torch.Tensor,
+    inner: Sequence[int],
+    minval: float = 0.0,
+    maxval: float = 1.0,
+) -> torch.Tensor:
+    """Rows ``rows`` of ``uniform(key, (N,) + inner)`` for any N above
+    ``max(rows)``, drawn alone: bit for bit ``uniform(key, shape)[rows]``.
+    The float is built from the int32 bits as :func:`uniform` builds it
+    from the uint32 words (logical shift, exponent of 1.0)."""
+    bits = (_srl(_bits_rows(key, rows, inner), 9) | 0x3F800000).to(
+        torch.int32)
+    floats = bits.view(torch.float32) - 1.0
+    lo = float(np.float32(minval))
+    span = float(np.float32(maxval) - np.float32(minval))
+    if minval == 0.0:
+        return torch.clamp(floats * span, min=lo)
+    return torch.clamp(fma(floats, span, lo), min=lo)
+
+
+def _bits32(key: torch.Tensor, shape, row_offset: int = 0,
+            rows=None) -> torch.Tensor:
     """``jax.random.bits`` of 32 bits (the two threefry output words
     XORed) as int32 bit patterns.  Where every flat index of the draw is
     below 2**32 (any draw of under 4G elements) the counters' high word
-    is 0, so its lane is the key word alone and never materialised."""
+    is 0, so its lane is the key word alone and never materialised.
+    ``rows`` draws those rows alone (:func:`_bits_rows`)."""
+    if rows is not None:
+        return _bits_rows(key, rows, shape[1:])
     k = _u32(key)
     ks = _key_schedule(k[0], k[1])
     n = 1
@@ -183,6 +234,7 @@ def randint(
     minval: int,
     maxval: int,
     row_offset: int = 0,
+    rows=None,
 ) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval, dtype=int32)`` ->
     int32, for int32 scalar bounds (``jax/_src/random.py:_randint``).
@@ -198,7 +250,8 @@ def randint(
     a power-of-two span (the coefficients' 256) is a mask of the lower
     draw's int32 bits.  ``row_offset`` draws rows ``[row_offset,
     row_offset + shape[0])`` of a larger draw whose trailing axes are
-    ``shape[1:]``."""
+    ``shape[1:]``; ``rows`` (an int tensor of ``shape[0]`` row ids) draws
+    those rows of it, in any order."""
     shape = tuple(int(d) for d in shape)
     minval, maxval = int(minval), int(maxval)
     for v in (minval, maxval):
@@ -207,11 +260,13 @@ def randint(
     span = 1 if maxval <= minval else maxval - minval
     mult = ((((1 << 16) % span) ** 2) & _M32) % span
     k1, k2 = split(key, 2).unbind(0)
-    lower = _bits32(k2, shape, row_offset)
+    if rows is not None and len(rows) != shape[0]:
+        raise ValueError(f"randint: {len(rows)} rows for shape {shape}")
+    lower = _bits32(k2, shape, row_offset, rows)
     if span & (span - 1) == 0:
         return (lower & (span - 1)) + minval   # int32 adds wrap as uint32
     offset = (lower.to(torch.int64) & _M32) % span
     if mult:
-        higher = _bits32(k1, shape, row_offset).to(torch.int64) & _M32
+        higher = _bits32(k1, shape, row_offset, rows).to(torch.int64) & _M32
         offset = ((_mulmod32(higher % span, mult) + offset) & _M32) % span
     return _i32((offset + minval) & _M32)

@@ -95,14 +95,23 @@ def topic_score(c: TopicCounters, p: ScoreParams) -> torch.Tensor:
     return torch.clamp(acc, max=p.topic_score_cap)
 
 
-def _colocation_surplus(ip_group: torch.Tensor, p: ScoreParams):
+def _colocation_surplus(ip_group: torch.Tensor, p: ScoreParams, pm=None):
     """f32[N]: how far each peer's colocation group exceeds the threshold
-    (group ids live in [0, N); ``segment_sum`` counts group sizes)."""
-    n = ip_group.shape[0]
-    group = torch.remainder(ip_group, n).long()
-    counts = segment_sum(
-        torch.ones(n, dtype=torch.float32, device=ip_group.device), group, n
-    )
+    (group ids live in [0, N); ``segment_sum`` counts group sizes).  On a
+    rank of the sharded rollout (``pm``) ``ip_group`` is the rank's block:
+    each rank counts its peers' groups as integers and the counts add over
+    the ranks (an integer all-reduce: a count of ones is exact in f32, so
+    this is the reference's float ``segment_sum`` bit for bit)."""
+    if pm is None:
+        n = ip_group.shape[0]
+        group = torch.remainder(ip_group, n).long()
+        counts = segment_sum(
+            torch.ones(n, dtype=torch.float32, device=ip_group.device),
+            group, n)
+    else:
+        group = torch.remainder(ip_group, pm.n).long()
+        counts = pm.sum(torch.bincount(group, minlength=pm.n).to(
+            torch.int32)).to(torch.float32)
     return torch.clamp(counts[group] - p.ip_colocation_factor_threshold,
                        min=0.0)
 
@@ -114,10 +123,12 @@ def colocation_penalty(ip_group: torch.Tensor, p: ScoreParams) -> torch.Tensor:
     return surplus * surplus * p.ip_colocation_factor_weight
 
 
-def global_score(g: GlobalCounters, p: ScoreParams) -> torch.Tensor:
+def global_score(g: GlobalCounters, p: ScoreParams, pm=None
+                 ) -> torch.Tensor:
     """P5 + P6 + P7 -> f32[N], indexed by remote peer id.  P6 and P7 each
-    contract with the running sum (``madd_square``)."""
-    surplus = _colocation_surplus(g.ip_group, p)
+    contract with the running sum (``madd_square``).  With ``pm`` the
+    counters are a rank's block, and so is the result."""
+    surplus = _colocation_surplus(g.ip_group, p, pm)
     excess = torch.clamp(g.behaviour_penalty - p.behaviour_penalty_threshold,
                          min=0.0)
     p5 = g.app_score if p.app_specific_weight == 1.0 else (
@@ -133,10 +144,18 @@ def neighbor_scores(
     nbr_valid: torch.Tensor,
     p: ScoreParams,
     jidx: Optional[torch.Tensor] = None,
+    pm=None,
 ) -> torch.Tensor:
     """Full score of each neighbor slot -> f32[N, K]; invalid slots score
-    -inf.  ``jidx`` optionally supplies ``clip(nbrs, 0, N-1)``."""
-    gs = global_score(g, p)
+    -inf.  ``jidx`` optionally supplies ``clip(nbrs, 0, N-1)``.  On a rank
+    of the sharded rollout (``pm``) the neighbors' global scores are read
+    across ranks (``pm.gather``)."""
+    gs = global_score(g, p, pm)
+    if pm is not None:
+        if jidx is None:
+            jidx = nbrs.clamp(0, pm.n - 1)
+        total = topic_score(c, p) + pm.gather(gs, jidx)
+        return torch.where(nbr_valid, total, -torch.inf)
     if jidx is None:
         jidx = nbrs.clamp(0, gs.shape[0] - 1)
     total = topic_score(c, p) + gs[jidx.long()]

@@ -531,10 +531,52 @@ def test_hybrid_views_match_reference(hybrid_ref):
 # ---------------------------------------------------------------------------
 
 
-def test_entry_points_refuse_peer_uid_and_a_missing_card():
-    for cls, kw in ((TR, _RLNC), (TH, _HYB)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            cls(device="cpu", peer_uid=np.arange(64), **kw)
+def test_entry_points_refuse_peer_uid_and_a_missing_card(monkeypatch):
+    """Placement relabeling (``peer_uid``) is ported: under a permutation
+    RLNC and the hybrid run leaf for leaf as the reference's (coefficients
+    and the eager plane's draws keyed on canonical identity, the blocked
+    coefficient draw included); a malformed ``peer_uid`` is refused with
+    the reference's message; a missing card still refuses."""
+    from go_libp2p_pubsub_torch.models import rlnc as trlnc
+
+    perm = np.random.default_rng(11).permutation(64)
+    jm = JR(peer_uid=perm, **_RLNC)
+    js = jm.init(3)
+    for src, slot, ok in ((0, 0, True), (5, 1, True), (9, 2, False)):
+        js = jm.publish(js, src, slot, ok)
+    jf, jrec = jm.rollout(js, 4, record=True)
+    tm = TR(device="cpu", peer_uid=perm, **_RLNC)
+    ts = bridge.rlnc_state_from_numpy(js, "cpu")
+    tf, trec = tm.rollout(ts, 4, record=True)
+    assert_same_leaves(jf, bridge.rlnc_state_to_numpy(tf), "rlnc uid")
+    assert_same_record(jrec, trec, "rlnc uid")
+    assert tm != TR(device="cpu", **_RLNC)
+    # Blocks of 5 senders (the last one ragged) draw the uid rows alone.
+    monkeypatch.setattr(trlnc, "DRAW_BLOCK_ELEMS", 5 * 8 * 8 * 4)
+    tb, _ = tm.rollout(ts, 4, record=True)
+    assert_same_leaves(jf, bridge.rlnc_state_to_numpy(tb), "rlnc blocked")
+    monkeypatch.undo()
+
+    jh = JH(peer_uid=perm, **_HYB)
+    jhs = jh.set_ingress_loss_p(_hybrid_start(jh), 0.4)
+    jhf, jhrec = jh.rollout(jhs, 9, record=True)
+    th = TH(device="cpu", peer_uid=perm, **_HYB)
+    ths = bridge.hybrid_state_from_numpy(jhs, "cpu")
+    thf, threc = th.rollout(ths, 9, record=True)
+    assert int(np.asarray(jhrec["coded_edges"])[-1]) > 0
+    assert_same_leaves(jhf, bridge.hybrid_state_to_numpy(thf), "hybrid uid")
+    assert_same_record(jhrec, threc, "hybrid uid")
+    # The port's own init: colocation labels are the canonical ids.
+    assert_same_leaves(jh.init(3), bridge.hybrid_state_to_numpy(th.init(3)),
+                       "hybrid uid init")
+
+    for cls, jcls, kw in ((TR, JR, _RLNC), (TH, JH, _HYB)):
+        for bad in (np.arange(63), np.zeros(64, np.int64)):
+            with pytest.raises(ValueError) as te:
+                cls(device="cpu", peer_uid=bad, **kw)
+            with pytest.raises(ValueError) as je:
+                jcls(peer_uid=bad, **kw)
+            assert str(te.value) == str(je.value)
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 cls(**kw)

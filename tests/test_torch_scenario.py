@@ -176,8 +176,8 @@ def test_topology_builders_match_reference(topo):
 def test_unported_families_raise_not_implemented():
     """The coded families compile (rlnc on the sim plane, the hybrid on the
     streaming plane, refused on the sim plane as the reference refuses
-    it); placement relabeling (``peer_uid``) still raises, naming its
-    ROADMAP item."""
+    it); a spec with placement relabeling (``peer_uid``) compiles, and its
+    relabelled model runs as the reference's."""
     comp = tscn.compile_scenario(tscn.build("degraded_links_rlnc"),
                                  device="cpu")
     ref = jscn.compile_scenario(jscn.build("degraded_links_rlnc"))
@@ -196,12 +196,25 @@ def test_unported_families_raise_not_implemented():
     from go_libp2p_pubsub_torch.scenario.compiler import compile_streaming_plan
     plan = compile_streaming_plan(tscn.build("streaming_degraded_links"))
     assert plan.compare_eager and plan.spec.family == "hybrid"
-    uid = dataclasses.replace(
-        tscn.build("degraded_links_rlnc"),
-        model=dict(tscn.build("degraded_links_rlnc").model,
-                   peer_uid=list(range(64))))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tscn.compile_scenario(uid, device="cpu")
+    perm = [int(x) for x in np.random.default_rng(2).permutation(64)]
+
+    def with_uid(scn):
+        spec = scn.build("degraded_links_rlnc")
+        return dataclasses.replace(spec, model=dict(spec.model,
+                                                    peer_uid=perm))
+
+    tcomp = tscn.compile_scenario(with_uid(tscn), device="cpu")
+    jcomp = jscn.compile_scenario(with_uid(jscn))
+    assert_same_events(jcomp.events, tcomp.events, "peer_uid")
+    np.testing.assert_array_equal(tcomp.model.peer_uid.numpy(),
+                                  np.asarray(jcomp.model.peer_uid))
+    jf, _ = jcomp.model.rollout(jcomp.state, 3, record=False)
+    tf, _ = tcomp.model.rollout(tcomp.state, 3, record=False)
+    ref, port = jf, bridge.rlnc_state_to_numpy(tf)
+    for name in type(port)._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(port, name)),
+                                      np.asarray(getattr(ref, name)),
+                                      err_msg=f"peer_uid: {name}")
 
 
 def test_per_edge_delay_rejects_eclipse_silence():

@@ -352,22 +352,54 @@ def test_non_streaming_families_and_components_refused_as_reference():
         assert str(te.value) == str(je.value)
 
 
+def _flat(state, pre=""):
+    out = {}
+    for name in type(state)._fields:
+        v = getattr(state, name)
+        if hasattr(v, "_fields"):
+            out.update(_flat(v, pre + name + "."))
+        else:
+            a = np.asarray(v)
+            out[pre + name] = a.view(np.int32) if a.dtype == np.float32 else a
+    return out
+
+
 @pytest.mark.parametrize("name", ["streaming_degraded_links",
                                   "streaming_rlnc_crash_recovery",
                                   "streaming_drifting_load"])
 def test_hybrid_streaming_specs_raise_naming_a9(name):
     """The coded plane (ROADMAP A9) is ported: the hybrid campaigns' plans
-    lower as the reference's, and the runner builds the hybrid model (a
-    ``peer_uid`` still raises, naming A10)."""
+    lower as the reference's, and the runner's model builder takes a
+    ``peer_uid``: the relabelled hybrid runs as the reference's, leaf for
+    leaf."""
     assert jscn.compile_streaming_plan(jscn.build(name)).spec.family == \
         "hybrid"
     assert _plan_doc(tscn.compile_streaming_plan(tscn.build(name))) == \
         _plan_doc(jscn.compile_streaming_plan(jscn.build(name)))
-    spec = tscn.build(name)
-    uid = dataclasses.replace(spec, model=dict(
-        spec.model, peer_uid=list(range(spec.model["n_peers"]))))
-    with pytest.raises(tscn.StreamingPlaneError, match="ROADMAP A10"):
-        tscn.run_streaming_scenario(uid, device="cpu")
+    from go_libp2p_pubsub_tpu.scenario.compiler import build_model as jbuild
+    from go_libp2p_pubsub_torch import bridge
+    from go_libp2p_pubsub_torch.scenario.compiler import build_model
+
+    n = tscn.build(name).model["n_peers"]
+    perm = [int(x) for x in np.random.default_rng(n).permutation(n)]
+
+    def with_uid(scn):
+        spec = scn.build(name)
+        return dataclasses.replace(spec, model=dict(spec.model,
+                                                    peer_uid=perm))
+
+    tm = build_model(with_uid(tscn), device="cpu")
+    jm = jbuild(with_uid(jscn))
+    js = jm.set_ingress_loss_p(jm.init(1), 0.3)
+    for slot in range(4):
+        js = jm.publish(js, (slot * 7) % n, slot, True)
+    jf, _ = jm.rollout(js, 6, record=False)
+    tf, _ = tm.rollout(bridge.hybrid_state_from_numpy(js, "cpu"), 6,
+                       record=False)
+    ref, port = _flat(jf), _flat(bridge.hybrid_state_to_numpy(tf))
+    assert ref.keys() == port.keys()
+    for key in ref:
+        np.testing.assert_array_equal(port[key], ref[key], err_msg=key)
 
 
 def test_cuda_runner_without_a_card_raises():
