@@ -25,15 +25,24 @@ Phases (each one fails the run, exit code != 0, on any error):
               the oracle on 128 rows, over the RFC 8032 vectors and a
               4096-signature corruption sweep, at every window the kernel
               has (w = 1 ... 6, the main path's among them) and at B in
-              {1, 127, 128, 129, 512, 2048, 4102}, and on the main path's
-              128-envelope window; counts the differing verdicts and
-              fails if there is one; E1's device time (CUDA events) at
-              the 128-envelope window and at B = 512 ... 32768, the
-              window sweep (w = 1 ... 6 at every batch),
-              ``verify_batch``'s wall time, the plain version's and the
-              native library's times, and E1's bound (integer
-              multiplies), on the whole card and on the SMs its launch
-              occupies, and its share of each;
+              {1, 3, 7, 9, 127, 128, 129, 511, 512, 513, 2048, 4102}
+              (batches that split a team, a warp and a block) in both
+              arms (the team of four lanes and one thread a signature),
+              with both arms again at the wrapper's crossover and one
+              either side, and on the main path's 128-envelope window;
+              counts the differing verdicts and fails if there is one;
+              prints each instantiation's registers, stack frame and
+              spills; E1's device time (CUDA events) at the 128-envelope
+              window and at B = 512 ... 32768, the window sweep (w = 1
+              ... 6 at every batch), ``verify_batch``'s wall time, the
+              plain version's and the native library's times, and E1's
+              bound
+              (integer multiplies), on the whole card and on the SMs its
+              launch occupies, and its share of each.  With
+              ``--e1-baseline DIR`` it also builds the E1 of the checkout
+              at DIR (the parent commit) and times it against this one in
+              turns (baseline, this, this, baseline, twice) at every
+              batch;
 5. main    -- the closed loop: 128 signed envelopes (4 forged) verified by
               the native library, and again through
               ``ValidationPipeline(backend="device")`` on E1 (one launch;
@@ -191,7 +200,8 @@ three repeats to two (24.7 -> 12.6 s).  RLNC at 100k keeps the bench's
 code.
 
 The last line is ``{"ok": true, "device": {...}}``; nothing else is
-printed after a failure.
+printed after a failure.  E1's block and arm sweeps, which chose its
+launch geometry, are ``tools/e1_sweep.py``.
 """
 
 from __future__ import annotations
@@ -213,7 +223,7 @@ HEADLINE = dict(n_peers=100_000, n_slots=32, conn_degree=16,
 L2_FLUSH_BYTES = 128 << 20         # written before each L2-flushed launch
 E1_SWEEP, E1_SEED = 4096, 2026     # the corruption sweep's rows and seed
 E1_BATCHES = (N_MSGS, 512, 2048, 8192, 32768)
-E1_CHECK_BATCHES = (1, 127, 128, 129, 512)
+E1_CHECK_BATCHES = (1, 3, 7, 9, 127, 128, 129, 511, 512, 513)
 E1_TWIN_MAX = 2048                 # the plain version's memory grows 4^w B
 
 
@@ -370,8 +380,8 @@ def ptxas_report(text: str):
     for line in text.splitlines():
         m = re.search(r"(?:entry function|properties for) '?(\w+)", line)
         if m:
-            k = re.search(r"(propagate|exchange|ed25519_verify)_kernelILi(\d+)E",
-                          m.group(1))
+            k = re.search(r"(propagate|exchange|ed25519_verify|"
+                          r"ed25519_verify_one)_kernelILi(\d+)E", m.group(1))
             fn = f"{k.group(1)}_kernel<{k.group(2)}>" if k else None
             if fn:
                 report.setdefault(fn, {})
@@ -522,7 +532,7 @@ def check_kernels(dev, ptxas):
         records.append(dict(
             name=name, route="cuda", source=src,
             replaces=f"go_libp2p_pubsub_tpu/ops/pallas_gossip.py:{line}",
-            launches=0, max_abs_err=err[wrapper], ms=t["ms"],
+            launches=None, max_abs_err=err[wrapper], ms=t["ms"],
             plain_ms=_time_ms(t["plain"], reps=5), bound_ms=t["bound_ms"],
             bound_by="bytes", library_ms=None, bound_bytes=t["bound_bytes"],
             call_ms=_time_ms(t["fn"], lead=False),
@@ -540,15 +550,23 @@ def check_kernels(dev, ptxas):
 
 
 def check_e1_ptxas(text: str):
-    """E1's registers, stack frame and spills for each window (a spill is
+    """E1's registers, stack frame and spills for each arm and window;
+    fails on a spill at the main path's window (elsewhere a spill is
     recorded, not failed on)."""
     from go_libp2p_pubsub_torch.ops import cuda_ed25519
+    from go_libp2p_pubsub_torch.ops import ed25519 as ted
 
     report = ptxas_report(text)
-    want = {f"ed25519_verify_kernel<{w}>" for w in cuda_ed25519.WINDOWS}
+    want = {f"{k}<{w}>" for w in cuda_ed25519.WINDOWS
+            for k in ("ed25519_verify_kernel", "ed25519_verify_one_kernel")}
     if set(report) != want or any("registers" not in r
                                   for r in report.values()):
         fail(f"ptxas reported no registers for every E1 window: {report}")
+    w0 = ted.default_window("cuda")
+    for k in ("ed25519_verify_kernel", "ed25519_verify_one_kernel"):
+        r = report[f"{k}<{w0}>"]
+        if r.get("spill_stores", 0) or r.get("spill_loads", 0):
+            fail(f"{k}<{w0}> spills: {r}")
     return report
 
 
@@ -594,15 +612,16 @@ def e1_bound_ms(batch: int, w: int, imads: int, dev,
     ``fe_mul_count(w)`` a verification) at 64 IMAD a clock on every SM at
     the card's maximum SM clock, and the bytes (128 in, 1 out a row) at
     the memory rate.  With ``occupied`` the multiplies get only the SMs
-    that E1's launch can occupy, min(blocks, SMs): the bound of a batch
-    that fills less than one wave, at its launch geometry."""
+    that E1's launch can occupy, min(blocks, SMs) at the signatures a
+    block of the arm the wrapper launches for ``batch``: the bound of a
+    batch that fills less than one wave, at its launch geometry."""
     import torch
 
     from go_libp2p_pubsub_torch.ops import cuda_ed25519
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if occupied:
-        sms = min(sms, -(-batch // cuda_ed25519.BLOCK_THREADS))
+        sms = min(sms, -(-batch // cuda_ed25519.sigs_per_block(batch)))
     rate = IMAD_PER_CLK_SM * sms * float(_query_gpu("clocks.max.sm")) * 1e6
     ops = imads * cuda_ed25519.fe_mul_count(w) * batch
     return max(ops / rate, 129 * batch / HBM_BYTES_PER_S) * 1e3
@@ -632,8 +651,10 @@ def check_e1(dev, data, window_envs):
     """E1 against the native library, the plain version and the oracle at
     every window the kernel has (the main path's included) and every check
     batch, and on the main path's 128-envelope window.  The plain version
-    runs at ``min(w, 4)`` (its verdicts do not depend on the window; its
-    memory grows 4^w B).  Counts every differing verdict, then fails if
+    runs once a batch, at ``min(w0, 4)`` for the main path's window w0 (its
+    verdicts do not depend on the window; its memory grows 4^w B).  Both
+    arms at the wrapper's crossover and one either side.  Counts every
+    differing verdict, then fails if
     there was one; returns (verdicts compared, differing verdicts, largest
     |E1 - other| over the verdicts as 0/1)."""
     import numpy as np
@@ -660,12 +681,13 @@ def check_e1(dev, data, window_envs):
         pks[:128], msgs[:128], sigs[:128])])
     if not np.array_equal(oracle, want[:128]):
         fail("the oracle and the native library disagree")
-    twins = {}
+    twins, twin_w = {}, min(ted.default_window(dev), 4)
 
-    def twin(key, rows, w):
-        if (key, w) not in twins:
-            twins[key, w] = ted.verify_rows(rows, "windowed", w).cpu().numpy()
-        return twins[key, w]
+    def twin(key, rows):
+        if key not in twins:
+            twins[key] = ted.verify_rows(rows, "windowed",
+                                         twin_w).cpu().numpy()
+        return twins[key]
 
     for w in cuda_ed25519.WINDOWS:
         got = ted.verify_batch(pks, msgs, sigs, window=w, device=dev)
@@ -675,19 +697,43 @@ def check_e1(dev, data, window_envs):
             rows, host_ok = ted.prepare_rows(pks[:b], msgs[:b], sigs[:b],
                                              pad_to=b)
             rows = torch.from_numpy(rows).to(dev)
-            raw = cuda_ed25519.verify(rows, "windowed", w).cpu().numpy()
-            plain = twin(b, rows, min(w, 4))
-            compare(f"w={w} B={b} vs native", raw & host_ok, want[:b])
-            compare(f"w={w} B={b} vs plain", raw & host_ok, plain & host_ok)
-            compare(f"w={w} B={b} host-passed raw vs plain", raw[host_ok],
-                    plain[host_ok])
+            plain = twin(b, rows)
+            for lanes in (cuda_ed25519.LANES, 1):
+                raw = cuda_ed25519._verify_arm(rows, w, lanes).cpu().numpy()
+                at = f"w={w} B={b} lanes={lanes}"
+                compare(f"{at} vs native", raw & host_ok, want[:b])
+                compare(f"{at} vs plain", raw & host_ok, plain & host_ok)
+                compare(f"{at} host-passed raw vs plain", raw[host_ok],
+                        plain[host_ok])
+
+    # Both arms at the crossover and one either side, every window: each
+    # against the native library, raw against each other, and the
+    # wrapper's default against the arm it should pick.
+    x = cuda_ed25519.ONE_THREAD_FROM
+    reps = -(-(x + 1) // n_all)
+    pool = [v * reps for v in (pks, msgs, sigs)]
+    for b in (x - 1, x, x + 1):
+        rows, host_ok = ted.prepare_rows(*[v[:b] for v in pool], pad_to=b)
+        rows = torch.from_numpy(rows).to(dev)
+        want_b = np.tile(want, reps)[:b]
+        for w in cuda_ed25519.WINDOWS:
+            team, one = (cuda_ed25519._verify_arm(rows, w, lanes).cpu()
+                         .numpy() for lanes in (cuda_ed25519.LANES, 1))
+            default = cuda_ed25519.verify(rows, "windowed", w).cpu().numpy()
+            compare(f"crossover w={w} B={b} team vs native", team & host_ok,
+                    want_b)
+            compare(f"crossover w={w} B={b} one vs native", one & host_ok,
+                    want_b)
+            compare(f"crossover w={w} B={b} team raw vs one raw", team, one)
+            compare(f"crossover w={w} B={b} default vs its arm", default,
+                    team if b < x else one)
 
     # The main path's rows: the signed window at B = 128, raw verdicts.
     win = _window_triples(window_envs)
     win_native = native.verify_batch(*win)
     rows, host_ok = ted.prepare_rows(*win, pad_to=N_MSGS)
     rows = torch.from_numpy(rows).to(dev)
-    plain = twin("window", rows, min(ted.default_window(dev), 4))
+    plain = twin("window", rows)
     for w in cuda_ed25519.WINDOWS:
         raw = cuda_ed25519.verify(rows, "windowed", w).cpu().numpy()
         compare(f"window w={w} raw vs plain", raw, plain)
@@ -704,10 +750,12 @@ def check_e1(dev, data, window_envs):
     return tally["compared"], tally["differ"], float(tally["err"])
 
 
-def time_e1(dev, data, window_envs, imads):
+def time_e1(dev, data, window_envs, imads, baseline=None):
     """E1's device time at the window and the curve batches, the window
-    sweep, ``verify_batch``'s wall time, the plain version's and the native
-    library's times, and the bound."""
+    sweep, ``verify_batch``'s wall time, the plain
+    version's and the native library's times, and the bound.  With a
+    ``baseline`` (:func:`e1_baseline`) its time and E1's at every batch,
+    in turns: baseline, E1, E1, baseline, twice (median of 20 each)."""
     import numpy as np
     import torch
 
@@ -721,6 +769,11 @@ def time_e1(dev, data, window_envs, imads):
     reps = -(-max(E1_BATCHES) // len(pks))
     pool = [x * reps for x in (pks, msgs, sigs)]
     curve, sweep, wall, bound, bound_sms = {}, {}, {}, {}, {}
+    turns = {}
+
+    def e1(rows, w):
+        return cuda_ed25519.verify(rows, "windowed", w)
+
     for b in E1_BATCHES:
         triples = win if b == N_MSGS else [x[:b] for x in pool]
         rows, _ = ted.prepare_rows(*triples, pad_to=b)
@@ -729,6 +782,14 @@ def time_e1(dev, data, window_envs, imads):
             ms = _time_ms(lambda: cuda_ed25519.verify(rows, "windowed", w),
                           reps=5 if b > 8192 else 10)
             sweep.setdefault(str(b), {})[f"w{w}"] = ms
+        if baseline is not None:
+            if not torch.equal(baseline(rows, w0), e1(rows, w0)):
+                fail(f"E1 and the baseline's E1 differ at B = {b}")
+            order = (baseline, e1, e1, baseline) * 2
+            ms = [_time_ms(lambda: f(rows, w0), reps=20) for f in order]
+            turns[str(b)] = {
+                name: [t for f, t in zip(order, ms) if f is arm]
+                for name, arm in (("baseline_ms", baseline), ("e1_ms", e1))}
         curve[str(b)] = b / (sweep[str(b)][f"w{w0}"] / 1e3)
         bound[str(b)] = e1_bound_ms(b, w0, imads, dev)
         bound_sms[str(b)] = e1_bound_ms(b, w0, imads, dev, occupied=True)
@@ -753,6 +814,8 @@ def time_e1(dev, data, window_envs, imads):
         native.verify_batch(*win)
         times.append((time.perf_counter() - t0) * 1e3)
     return dict(window=w0, ms_by_batch={k: v[f"w{w0}"] for k, v in sweep.items()},
+                baseline_turns_by_batch=turns,
+                one_thread_from=cuda_ed25519.ONE_THREAD_FROM,
                 sigs_per_s=curve, batch_knee=knee, window_sweep_ms=sweep,
                 best_window_by_batch={k: min(v, key=v.get)
                                       for k, v in sweep.items()},
@@ -765,8 +828,43 @@ def time_e1(dev, data, window_envs, imads):
                     k: bound_sms[k] / sweep[k][f"w{w0}"] for k in bound_sms})
 
 
-def check_ed25519(dev, e1_ptxas, imads, card):
-    """Phase 4.  Returns E1's record (launches filled later)."""
+def e1_baseline(root: str):
+    """Builds the E1 of the checkout at ``root`` (the parent commit: one
+    thread a signature, a C entry without the arm) into the
+    build directory; returns (its launcher, rows x window -> bool on the
+    card; its ``-Xptxas -v`` report)."""
+    import ctypes
+
+    import torch
+
+    from go_libp2p_pubsub_torch.ops import cuda_build, cuda_ed25519
+
+    src = os.path.join(os.path.abspath(root), "go_libp2p_pubsub_torch",
+                       "csrc", "ed25519_verify.cu")
+    lib_path = os.path.join(cuda_build.BUILD_DIR,
+                            "libed25519_verify_baseline.so")
+    report = ptxas_report(cuda_build.build(src, lib_path, verbose=True))
+    lib = ctypes.CDLL(lib_path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.ed25519_verify.argtypes = [vp, vp, vp, ci, ci, vp]
+    lib.ed25519_verify.restype = ci
+
+    def run(rows, w):
+        table = cuda_ed25519._base_table(w, rows.device)
+        out = torch.empty(rows.shape[0], dtype=torch.bool, device=rows.device)
+        cuda_build.raise_on(lib.ed25519_verify(
+            rows.data_ptr(), table.data_ptr(), out.data_ptr(), rows.shape[0],
+            w, torch.cuda.current_stream(rows.device).cuda_stream),
+            "baseline ed25519_verify launch")
+        return out
+
+    return run, report
+
+
+def check_ed25519(dev, e1_ptxas, imads, card, baseline=None):
+    """Phase 4.  Returns E1's record (``launches`` None until the main
+    path's run fills it).
+    ``baseline``: :func:`e1_baseline`'s result, or None."""
     import numpy as np
 
     from go_libp2p_pubsub_torch.ops import cuda_ed25519
@@ -775,7 +873,8 @@ def check_ed25519(dev, e1_ptxas, imads, card):
     data = e1_sweep_data()
     envs, _ = signed_window(np.random.default_rng(1))
     compared, mismatches, max_err = check_e1(dev, data, envs)
-    timed = time_e1(dev, data, envs, imads["imads"])
+    timed = time_e1(dev, data, envs, imads["imads"],
+                    baseline[0] if baseline else None)
     w0, win = timed["window"], str(N_MSGS)
     emit(dict(phase="ed25519", rows=len(data[0]), verdicts_compared=compared,
               mismatches=mismatches, windows_checked=list(
@@ -786,12 +885,16 @@ def check_ed25519(dev, e1_ptxas, imads, card):
               fe_mul_per_verify={w: cuda_ed25519.fe_mul_count(w)
                                  for w in cuda_ed25519.WINDOWS},
               **{k: v for k, v in timed.items() if k != "window"},
-              window=w0, ptxas=e1_ptxas))
+              window=w0, lanes=cuda_ed25519.LANES,
+              threads=cuda_ed25519.THREADS,
+              sigs_per_block={str(b): cuda_ed25519.sigs_per_block(b)
+                              for b in E1_BATCHES}, ptxas=e1_ptxas,
+              baseline_ptxas=baseline[1] if baseline else None))
     return dict(
         name="ed25519_verify", route="cuda",
         source="go_libp2p_pubsub_torch/csrc/ed25519_verify.cu",
         replaces="go_libp2p_pubsub_tpu/ops/ed25519.py:779",
-        launches=0, max_abs_err=max_err, mismatches=mismatches,
+        launches=None, max_abs_err=max_err, mismatches=mismatches,
         ms=timed["ms_by_batch"][win],
         plain_ms=timed["plain_ms_by_batch"][win],
         bound_ms=timed["bound_ms_by_batch"][win], bound_by="operations",
@@ -3281,6 +3384,13 @@ def sharded_phase(dev, card: str):
 
 
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--e1-baseline", metavar="DIR",
+                    help="also time the E1 of the checkout at DIR against "
+                    "this one, in turns (phase ed25519)")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -3298,19 +3408,22 @@ def main() -> None:
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as ex:
+    with concurrent.futures.ThreadPoolExecutor(4) as ex:
         kernels = ex.submit(cuda_gossip.build, True)
         e1 = ex.submit(cuda_ed25519.build, True)
         ed = ex.submit(native.build)
+        base = (ex.submit(e1_baseline, args.e1_baseline)
+                if args.e1_baseline else None)
         ptxas = check_ptxas(kernels.result())
         e1_ptxas = check_e1_ptxas(e1.result())
         ed.result()
+        baseline = base.result() if base else None
     imads = fe_mul_imads()
     emit(dict(phase="build", seconds=time.perf_counter() - t0, ptxas=ptxas,
               e1_ptxas=e1_ptxas, e1_fe_mul_imads=imads))
 
     records = check_kernels(dev, ptxas)
-    records.append(check_ed25519(dev, e1_ptxas, imads, card))
+    records.append(check_ed25519(dev, e1_ptxas, imads, card, baseline))
     launches = main_path(dev, card)
     scenario_launches = scenario_phase(dev, card)
     serve_launches, streaming_launches = serve_phase(dev, card)

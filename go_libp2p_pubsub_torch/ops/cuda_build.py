@@ -35,13 +35,16 @@ def nvcc() -> str:
     raise KernelBuildError("nvcc not found (needs the CUDA toolkit)")
 
 
-def build(source: str, lib_path: str, verbose: bool = False) -> str:
+def build(source: str, lib_path: str, verbose: bool = False,
+          defines: tuple = ()) -> str:
     """Compile ``source`` into ``lib_path`` (always) and return nvcc's
-    output (``-Xptxas -v`` register/stack/spill report when ``verbose``)."""
+    output (``-Xptxas -v`` register/stack/spill report when ``verbose``).
+    ``defines``: ``NAME=value`` macros for the build (a sweep's variant)."""
     os.makedirs(os.path.dirname(lib_path), exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
     cmd = [nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", tmp, source]
+           *(f"-D{d}" for d in defines), "-Xcompiler", "-fPIC", "-o", tmp,
+           source]
     if verbose:
         cmd[1:1] = ["-Xptxas", "-v"]
     proc = subprocess.run(cmd, capture_output=True, text=True)

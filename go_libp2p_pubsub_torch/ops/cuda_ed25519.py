@@ -9,11 +9,20 @@ plain C interface: pointers from ``data_ptr()``, PyTorch's current stream,
 ``ops/ed25519.py:_verify_kernel_windowed_bm`` and ``_verify_kernel_bm`` (an
 XLA program there, not a Pallas kernel).  Bound on the card: integer
 multiplies -- 128 bytes in and 1 out per signature against ~3.7k field
-multiplies (:func:`fe_mul_count`); the source says what the design does
-about it.  Its plain version is ``ops/ed25519.py:verify_rows`` (the twin of
-the JAX functions, limb for limb).  The wrapper runs the plain version only
-when its rows lie on the CPU; on a CUDA tensor it launches E1 or raises.
-It counts its launches in ``verify.launches``.
+multiplies (:func:`fe_mul_count`).  What holds it back is latency: a
+signature is a chain of dependent multiplies, and the main path's batch
+of 128 fills few SMs.  So a team of four lanes verifies each signature
+(:data:`LANES`), eight to a warp: every point operation is two rounds of
+one field multiply a lane, ~1,095 multiplies on the critical path instead
+of 3,685 at w = 5; the source says how.  From :data:`ONE_THREAD_FROM`
+signatures up, where the card is full and the team's ~19% more
+lane-multiplies cost more than its shorter chain saves, one thread
+verifies each signature instead.  The bound stays the work:
+``fe_mul_count(w)`` multiplies a signature.  Its plain version is
+``ops/ed25519.py:verify_rows`` (the twin of the JAX functions, limb for
+limb).  The wrapper runs the plain version only when its rows lie on the
+CPU; on a CUDA tensor it launches E1 or raises.  It counts its launches in
+``verify.launches``.
 """
 
 from __future__ import annotations
@@ -35,7 +44,22 @@ from .cuda_build import raise_on as _raise_on
 SOURCE = os.path.join(cuda_build.CSRC_DIR, "ed25519_verify.cu")
 LIB_PATH = os.path.join(cuda_build.BUILD_DIR, "libed25519_verify.so")
 WINDOWS = (1, 2, 3, 4, 5, 6)  # the kernel's instantiations
-BLOCK_THREADS = 128  # signatures a block (E1_THREADS in the source)
+LANES = 4  # lanes a signature (E1_LANES in the source)
+# Threads a block, both arms (E1_THREADS in the source).  The team's block
+# sweep at 32 / 64 / 128 / 256 threads, w = 5: 0.611 / 0.607 / 0.608 /
+# 0.907 ms at B = 128, 3.883 / 3.824 / 3.750 / 3.728 ms at B = 32,768,
+# where the one-thread arm serves (tools/e1_sweep.py; NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md section 6).
+THREADS = 128
+# From this many signatures up, one thread a signature: the team does ~19%
+# more lane-multiplies a signature, and once the batch fills the card that
+# costs more than its shorter chain saves.  Verifier users send such
+# batches: the reference's device curve reaches 32,768 (bench.py's
+# ``device_curve``), through ``ed25519.verify_batch(pad_to=...)``.  The arm
+# sweep at w = 5, team / one thread, mean of two turns: 3.116 / 3.137 ms
+# at 25,600 and 3.191 / 3.159 ms at 26,624 (tools/e1_sweep.py; NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md section 6).
+ONE_THREAD_FROM = 26624
 _MASK51 = (1 << 51) - 1
 
 _lock = threading.Lock()
@@ -59,7 +83,7 @@ def _load() -> ctypes.CDLL:
             build()
         lib = ctypes.CDLL(LIB_PATH)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.ed25519_verify.argtypes = [vp, vp, vp, ci, ci, vp]
+        lib.ed25519_verify.argtypes = [vp, vp, vp, ci, ci, ci, vp]
         lib.ed25519_verify.restype = ci
         lib.ed25519_fe_mul_probe.argtypes = [vp, vp, vp, ci, vp]
         lib.ed25519_fe_mul_probe.restype = ci
@@ -103,14 +127,39 @@ def fe_mul_count(w: int) -> int:
     return 2 * 275 + 1 + 9 * ((1 << w) - 2) + (-(-256 // w)) * (8 * w + 15) + 4
 
 
+def launch_lanes(n: int) -> int:
+    """Lanes a signature of the arm :func:`verify` launches for a batch of
+    ``n``: the team below :data:`ONE_THREAD_FROM`, one thread from it up."""
+    return LANES if n < ONE_THREAD_FROM else 1
+
+
+def sigs_per_block(n: int) -> int:
+    """Signatures a block of the arm :func:`verify` launches for ``n``."""
+    return THREADS // launch_lanes(n)
+
+
 def verify(rows: torch.Tensor, ladder: str = "windowed",
            window: int = 4) -> torch.Tensor:
     """The device part of a batch verify (kernel E1; same contract as
     ``ed25519.verify_rows``): rows uint8[B, 128] (A | R | S | k) ->
     bool[B] on the rows' device.  ``ladder="straus"`` is the 1-bit
-    window."""
+    window.  The arm follows the batch size (:func:`launch_lanes`)."""
     if rows.device.type == "cpu":
         return plain.verify_rows(rows, ladder, window)
+    return _launch(rows, ladder, window, launch_lanes(rows.shape[0]))
+
+
+def _verify_arm(rows: torch.Tensor, window: int, lanes: int) -> torch.Tensor:
+    """One arm of E1 at any batch, on the card: ``lanes`` 4 (the team) or
+    1 (one thread a signature).  For the tests and the sweeps that hold
+    the two arms against each other."""
+    if rows.device.type != "cuda" or lanes not in (1, LANES):
+        raise ValueError(f"_verify_arm: {lanes} lanes on {rows.device}")
+    return _launch(rows, "windowed", window, lanes)
+
+
+def _launch(rows: torch.Tensor, ladder: str, window: int,
+            lanes: int) -> torch.Tensor:
     if rows.device.type != "cuda":
         raise ValueError(f"verify: unsupported device {rows.device}")
     if ladder not in ("straus", "windowed"):
@@ -136,7 +185,7 @@ def verify(rows: torch.Tensor, ladder: str = "windowed",
     out = torch.empty(n, dtype=torch.bool, device=dev)
     with torch.cuda.device(_index(dev)):
         code = lib.ed25519_verify(
-            rows.data_ptr(), table.data_ptr(), out.data_ptr(), n, w,
+            rows.data_ptr(), table.data_ptr(), out.data_ptr(), n, w, lanes,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(code, "ed25519_verify launch")
     verify.launches += 1

@@ -508,9 +508,13 @@ def default_ladder() -> str:
 def default_window(device="cuda") -> int:
     """Window size for ``ladder="windowed"`` on ``device``: 2 on the CPU,
     where the plain version's 4^w joint grid is real work (as in the JAX
-    package); on a CUDA card 5, the fastest of kernel E1's six windows at
-    the 128-signature window and at 32,768 signatures in
-    ``chip_smoke.py``'s sweep, and its fewest field multiplies (PERF.md)."""
+    package); on a CUDA card 5, its fewest field multiplies and the
+    fastest of kernel E1's six windows at the 128-signature window: the
+    team at w = 1 ... 6 took 1.100 / 0.768 / 0.654 / 0.605 / 0.604 /
+    0.633 ms there (``chip_smoke.py`` phase ``ed25519``, NVIDIA H100 80GB
+    HBM3, 700 W; PERF.md section 6).  w = 4 is 2.0% faster for the team
+    at 8,192 signatures (0.904 against 0.922 ms); the one-thread arm that
+    serves 32,768 is fastest at 5 (3.094 against 3.196 ms at w = 4)."""
     return 2 if torch.device(device).type == "cpu" else 5
 
 

@@ -1,9 +1,11 @@
 """Kernel E1 (batched ed25519 verification, ``csrc/ed25519_verify.cu``)
 held against the native C++ library and its plain PyTorch version (the
 twin, run on the same card) on an NVIDIA card: the RFC 8032 vectors and a
-seeded corruption sweep at every window, ragged batch sizes, the kernel's
-field multiply against integers, the launch count, and the wrapper's
-argument checks.
+seeded corruption sweep at every window, ragged batch sizes (a team, a
+warp or a block split), both arms (the team of four lanes and one thread
+a signature) at the batch where the wrapper switches between them, the
+kernel's field multiply against integers, the launch count, and the
+wrapper's argument checks.
 
 These tests need the card and ``nvcc``; elsewhere they skip.  This file
 imports only torch and the port, so it runs where JAX is not installed:
@@ -64,17 +66,62 @@ def test_e1_straus_equals_oracle_on_rfc_vectors():
     np.testing.assert_array_equal(oracle, want)
 
 
+_SPB = cuda_ed25519.sigs_per_block(1)  # the team's
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 31, 33, 129])
-@pytest.mark.parametrize("w", [1, 4])
+@pytest.mark.parametrize("n", [1, 3, 7, 9, 31, 33, 127, 129, 16 * _SPB - 1,
+                               16 * _SPB + 1])
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 6])
 def test_e1_ragged_batches(n, w):
-    """No padding (``pad_to=n``): the last block is ragged."""
+    """No padding (``pad_to=n``): a batch that splits a team (4 lanes), a
+    warp (8 signatures) or a block leaves its last lanes past the end;
+    they verify the last row and store nothing."""
     dev = _cuda()
     pks, msgs, sigs = _batch(n=n, seed=n)
-    got = ted.verify_batch(pks[:n], msgs[:n], sigs[:n], pad_to=n, window=w,
-                           device=dev)
-    np.testing.assert_array_equal(
-        got, native.verify_batch(pks[:n], msgs[:n], sigs[:n]))
+    pks, msgs, sigs = pks[:n], msgs[:n], sigs[:n]
+    want = native.verify_batch(pks, msgs, sigs)
+    cuda_ed25519.reset_launches()
+    got = ted.verify_batch(pks, msgs, sigs, pad_to=n, window=w, device=dev)
+    assert cuda_ed25519.verify.launches == 1
+    np.testing.assert_array_equal(got, want)
+    rows, host_ok = ted.prepare_rows(pks, msgs, sigs, pad_to=n)
+    rows = torch.from_numpy(rows).to(dev)
+    raw = cuda_ed25519.verify(rows, "windowed", w).cpu().numpy()
+    twin = ted.verify_rows(rows, "windowed", min(w, 4)).cpu().numpy()
+    np.testing.assert_array_equal(raw & host_ok, twin & host_ok)
+    np.testing.assert_array_equal(raw[host_ok], twin[host_ok])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 6])
+def test_e1_both_arms_at_the_crossover(w):
+    """Below ``ONE_THREAD_FROM`` signatures the wrapper launches the team,
+    from there up one thread a signature: at the crossover and one either
+    side both arms give the native verdicts and the same raw ones, and
+    ``verify_batch`` launches E1 once."""
+    dev = _cuda()
+    x = cuda_ed25519.ONE_THREAD_FROM
+    pks, msgs, sigs = _batch()
+    reps = -(-(x + 1) // len(pks))
+    pks, msgs, sigs = pks * reps, msgs * reps, sigs * reps
+    for b in (x - 1, x, x + 1):
+        want = native.verify_batch(pks[:b], msgs[:b], sigs[:b])
+        rows, host_ok = ted.prepare_rows(pks[:b], msgs[:b], sigs[:b],
+                                         pad_to=b)
+        rows = torch.from_numpy(rows).to(dev)
+        team = cuda_ed25519._verify_arm(rows, w,
+                                        cuda_ed25519.LANES).cpu().numpy()
+        one = cuda_ed25519._verify_arm(rows, w, 1).cpu().numpy()
+        np.testing.assert_array_equal(team, one)
+        np.testing.assert_array_equal(team & host_ok, want)
+        assert cuda_ed25519.launch_lanes(b) == (
+            cuda_ed25519.LANES if b < x else 1)
+        cuda_ed25519.reset_launches()
+        got = ted.verify_batch(pks[:b], msgs[:b], sigs[:b], pad_to=b,
+                               window=w, device=dev)
+        assert cuda_ed25519.verify.launches == 1
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.cuda
@@ -125,3 +172,8 @@ def test_e1_wrapper_rejects_what_the_kernel_does_not_take():
         cuda_ed25519.verify(rows, "windowed", 7)
     with pytest.raises(ValueError):
         cuda_ed25519.verify(rows[:0], "windowed", 4)
+    for lanes in (0, 2, 8):
+        with pytest.raises(ValueError):
+            cuda_ed25519._verify_arm(rows, 4, lanes)
+    with pytest.raises(ValueError):
+        cuda_ed25519._verify_arm(rows.cpu(), 4, cuda_ed25519.LANES)
