@@ -189,7 +189,28 @@ Phases (each one fails the run, exit code != 0, on any error):
               statistic and a kill's mask, and the sharded wrappers
               against the unsharded plain functions); and K1/K2 timed at
               a rank's block shapes (B = 25,600 and 204,800) beside their
-              bounds, the gather's bytes reckoned apart.  At most 180 s.
+              bounds, the gather's bytes reckoned apart.  At most 180 s;
+11. live    -- the live plane over loopback sockets at the reference's live
+              width (16 hosts, ``bench.py``'s ``LIVE_OBS_SCALE``): host 0
+              roots topic ``bench`` and publishes phase ``main``'s
+              128-envelope window (the same 4 positions forged, by an
+              altered signature byte) to 15 subscribers that verify with
+              ``validate="device"`` on E1 (``LiveNetwork(device=)``), then
+              the same tree with ``validate="native"``: every subscriber
+              delivers the 124 valid payloads in publish order and no
+              forged one, only the root's direct children reject (4 each,
+              relay is verdict-gated), the pipelines' stats add up to what
+              the tree implies, E1 launches between 15 and the envelopes
+              validated (0 in the native tree), no validator task failed;
+              delivered msgs/s, E1's mean batch and the tree's depth; the
+              tracing A/B of ``bench.py``'s ``live_obs_child_main`` (192
+              messages a rep, 3 reps, traced at 1/16, arms interleaved;
+              the merged spans must cover the 16 hosts and every traced
+              message; the overhead is printed against the 2% budget);
+              and the canon's two live-only campaigns,
+              ``root_kill_failover`` and ``live_partition_heal``, through
+              ``scenario.run_live_scenario``, each graded PASS by its
+              spec's SLO.  At most 120 s.
 
 Depth cut to make room for phase ``sharded`` (each section's seconds on
 an NVIDIA H100 80GB HBM3 at 700 W, before -> after): the hybrid loss grid
@@ -3383,6 +3404,347 @@ def sharded_phase(dev, card: str):
     return launches
 
 
+# -- phase 11: the live plane -------------------------------------------------
+
+
+# The reference's live width: bench.py:140 LIVE_OBS_SCALE (16 hosts, 192
+# messages a rep, 3 reps, 64-byte payloads, traced at 1/16) and the canon's
+# live campaigns' n_hosts (canon.py:472, :502).
+LIVE = dict(n_hosts=16, title="bench", obs_msgs=192, obs_reps=3,
+            payload_bytes=64, trace_sample=16)
+LIVE_WAIT_S = 60.0           # bound on every wait of the phase
+LIVE_BUDGET_S = 120.0
+LIVE_CAMPAIGNS = ("root_kill_failover", "live_partition_heal")
+
+
+def live_window():
+    """Phase ``main``'s 128-envelope window on topic ``bench``, seqnos
+    ascending, with the four forged envelopes at main's positions carrying
+    their payloads as signed and one signature byte altered instead."""
+    import numpy as np
+
+    from go_libp2p_pubsub_torch.crypto import native
+
+    envs, forged = signed_window(np.random.default_rng(1))
+    out = []
+    for i, e in enumerate(envs):
+        if i in forged:
+            e = native.Envelope(
+                e.topic, e.seqno, bytes([e.payload[0] ^ 0xFF]) + e.payload[1:],
+                e.pubkey, bytes([e.signature[0] ^ 0x01]) + e.signature[1:])
+        out.append(e)
+    return out, forged
+
+
+def _drain_threads(subs, n_each, sink):
+    """One thread a subscriber reading ``n_each`` deliveries, each read
+    bounded by ``LIVE_WAIT_S``; ``sink(i, payload)`` records them."""
+    import threading
+
+    errors = []
+
+    def drain(i, sub):
+        try:
+            for _ in range(n_each):
+                sink(i, sub.get(timeout=LIVE_WAIT_S))
+        except Exception as e:  # noqa: BLE001 -- reported by the caller
+            errors.append((i, repr(e)))
+
+    threads = [threading.Thread(target=drain, args=(i, s), daemon=True)
+               for i, s in enumerate(subs)]
+    for th in threads:
+        th.start()
+
+    def join():
+        deadline = time.perf_counter() + 2 * LIVE_WAIT_S
+        for th in threads:
+            th.join(timeout=max(0.0, deadline - time.perf_counter()))
+        stuck = [i for i, th in enumerate(threads) if th.is_alive()]
+        return errors + [(i, "still reading") for i in stuck]
+
+    return join
+
+
+def live_tree(dev, envs, forged, validate: str) -> dict:
+    """The 16-host signed tree: host 0 roots topic ``bench``, the 15 others
+    subscribe with ``validate``, and the root publishes the window's wire
+    bytes in seqno order.  Every subscriber must deliver exactly the valid
+    payloads in publish order; only the root's direct children may reject
+    (4 forged each), since relay is verdict-gated."""
+    import asyncio
+
+    from go_libp2p_pubsub_torch.net import LiveNetwork
+    from go_libp2p_pubsub_torch.ops import cuda_ed25519
+
+    n = LIVE["n_hosts"]
+    valid = [e.payload for i, e in enumerate(envs) if i not in forged]
+    cuda_ed25519.reset_launches()
+    net = LiveNetwork(device=dev)
+    try:
+        hosts = net.make_hosts(n)
+        topic = hosts[0].new_topic(LIVE["title"])
+        subs = [h.subscribe(hosts[0].id, LIVE["title"], validate=validate)
+                for h in hosts[1:]]
+        got = [[] for _ in subs]
+        last = [0.0] * len(subs)
+
+        def sink(i, payload):
+            got[i].append(payload)
+            last[i] = time.perf_counter()
+
+        join = _drain_threads(subs, len(valid), sink)
+        t0 = time.perf_counter()
+        for e in envs:
+            topic.publish_message(e.to_wire())
+        errors = join()
+        if errors:
+            fail(f"live {validate}: subscribers failed to read: {errors[:4]}")
+        elapsed = max(last) - t0
+        direct = set(topic.topic.node.children)
+        want = [len(envs) if h.id in direct else len(valid)
+                for h in hosts[1:]]
+
+        async def settle():
+            # Frames behind the last valid one (a forged envelope at the
+            # window's end) still reach their verdicts: wait, bounded, until
+            # every pipeline has validated what it was sent.
+            loop = asyncio.get_running_loop()
+            deadline = loop.time() + LIVE_WAIT_S
+            while loop.time() < deadline:
+                if all(s.sub.validator.pipeline.stats["validated"] >= w
+                       and not s.sub.validator._queue
+                       for s, w in zip(subs, want)):
+                    break
+                await asyncio.sleep(0.005)
+            out = []
+            for s in subs:
+                v = s.sub.validator
+                task = v._task
+                err = (task.exception() if task is not None and task.done()
+                       else None)
+                ps = s.sub.node.parent_stream
+                out.append(dict(
+                    stats=dict(v.pipeline.stats),
+                    rejected_signature=v.rejected_signature,
+                    rejected_structural=v.rejected_structural,
+                    error=None if err is None else repr(err),
+                    parent=None if ps is None else ps.remote_peer,
+                    extra=s.sub.out.qsize()))
+            return out
+
+        state = net.call(settle(), timeout=LIVE_WAIT_S + 10)
+    finally:
+        net.shutdown()
+    e1 = cuda_ed25519.verify.launches
+    bad = {envs[i].payload for i in forged}
+    for i, (g, st, w, h) in enumerate(zip(got, state, want, hosts[1:])):
+        if st["error"] is not None:
+            fail(f"live {validate}: host {i + 1}'s validator ended in "
+                 f"{st['error']}")
+        if g != valid:
+            fail(f"live {validate}: host {i + 1} delivered {len(g)} payloads"
+                 f", not the {len(valid)} valid ones in publish order")
+        if st["extra"] or bad & set(g):
+            fail(f"live {validate}: host {i + 1} delivered a forged payload")
+        if st["stats"]["validated"] != w:
+            fail(f"live {validate}: host {i + 1} validated "
+                 f"{st['stats']['validated']} envelopes, not {w}")
+        rej = len(forged) if h.id in direct else 0
+        if (st["rejected_signature"], st["rejected_structural"]) != (rej, 0):
+            fail(f"live {validate}: host {i + 1} (direct child: "
+                 f"{h.id in direct}) rejected {st['rejected_signature']} "
+                 f"signatures and {st['rejected_structural']} frames, not "
+                 f"{rej} and 0")
+    d = len(direct)
+    total = {k: sum(st["stats"][k] for st in state)
+             for k in ("validated", "accepted", "rejected")}
+    expect = dict(validated=len(envs) * d + len(valid) * (n - 1 - d),
+                  accepted=len(valid) * (n - 1),
+                  rejected=len(forged) * d)
+    if total != expect:
+        fail(f"live {validate}: pipeline stats {total}, the topology "
+             f"implies {expect}")
+    if validate == "device" and not n - 1 <= e1 <= total["validated"]:
+        fail(f"live device: E1 launched {e1} times, outside "
+             f"[{n - 1}, {total['validated']}]")
+    if validate != "device" and e1 != 0:
+        fail(f"live {validate}: E1 launched {e1} times")
+    parent = {h.id: st["parent"] for h, st in zip(hosts[1:], state)}
+    depth = 0
+    for h in hosts[1:]:
+        k, p = 0, h.id
+        while p != hosts[0].id and k <= n:
+            p, k = parent.get(p), k + 1
+        if p != hosts[0].id:
+            fail(f"live {validate}: host {h.id} has no path to the root")
+        depth = max(depth, k)
+    deliveries = sum(len(g) for g in got)
+    return dict(validate=validate, deliveries=deliveries,
+                elapsed_s=elapsed, msgs_per_sec=deliveries / elapsed,
+                e1_launches=e1,
+                mean_batch=total["validated"] / e1 if e1 else None,
+                stats=total, direct_children=d, depth=depth)
+
+
+def live_obs(dev) -> dict:
+    """``bench.py:1818`` ``live_obs_child_main`` through the port: each rep
+    runs the same window through a fresh untraced and a fresh traced
+    (1/16 hash-mod) 16-host tree, arms interleaved; the best traced rep's
+    per-host ledgers are merged.  The merge must cover the 16 hosts and
+    every traced message; the overhead is reported against the 2% budget,
+    not enforced."""
+    from go_libp2p_pubsub_torch.net import LiveNetwork
+    from go_libp2p_pubsub_torch.obs.merge import (
+        build_host_span_artifact, merge_host_artifacts)
+    from go_libp2p_pubsub_torch.obs.spans import SpanLedger, live_span_key
+
+    n, n_msgs = LIVE["n_hosts"], LIVE["obs_msgs"]
+    sample_n = LIVE["trace_sample"]
+    pad = b"x" * LIVE["payload_bytes"]
+    payloads = [b"bench:%d:" % i + pad for i in range(n_msgs)]
+    n_traced = []
+
+    def arm(traced):
+        net = LiveNetwork(trace_sample=sample_n if traced else None,
+                          device=dev)
+        try:
+            hosts = net.make_hosts(n)
+            topic = hosts[0].new_topic("bench")
+            if traced and not n_traced:
+                probe = SpanLedger(sample_n=sample_n)
+                protoid = f"{hosts[0].id}/bench"
+                n_traced.append(sum(probe.sampled(live_span_key(protoid, p))
+                                    for p in payloads))
+            subs = [h.subscribe(hosts[0].id, "bench") for h in hosts[1:]]
+            time.sleep(0.3)     # the join fan-out settles off the clock
+            counts = [0] * len(subs)
+
+            def sink(i, _payload):
+                counts[i] += 1
+
+            join = _drain_threads(subs, n_msgs, sink)
+            t0 = time.perf_counter()
+            for p in payloads:
+                topic.publish_message(p)
+            errors = join()
+            elapsed = time.perf_counter() - t0
+            if errors:
+                fail(f"live obs (traced={traced}): {errors[:4]}")
+            arts = ([build_host_span_artifact(h.id, h.ledger)
+                     for h in hosts if h.ledger is not None]
+                    if traced else None)
+            return sum(counts) / elapsed, sum(counts), arts
+        finally:
+            net.shutdown()
+
+    expect = n_msgs * (n - 1)
+    untraced, traced, best = [], [], None
+    for rep in range(LIVE["obs_reps"]):
+        r0, d0, _ = arm(False)
+        r1, d1, arts = arm(True)
+        if d0 != expect or d1 != expect:
+            fail(f"live obs rep {rep}: delivered {d0} / {d1} of {expect}")
+        untraced.append(r0)
+        traced.append(r1)
+        if r1 == max(traced):
+            best = arts
+    merged = merge_host_artifacts(best)
+    prop = merged["propagation"]
+    k = n_traced[0]
+    if not k or prop["messages"] != k or prop["deliveries"] != k * (n - 1):
+        fail(f"live obs: merge covers {prop['messages']} messages and "
+             f"{prop['deliveries']} deliveries, traced {k}")
+    if len(merged["hosts"]) != n:
+        fail(f"live obs: merge covers {len(merged['hosts'])} hosts, not {n}")
+    best_plain, best_traced = max(untraced), max(traced)
+    overhead = max(0.0, 1.0 - best_traced / best_plain)
+    return dict(
+        n_hosts=n, msgs_per_rep=n_msgs, reps=LIVE["obs_reps"],
+        trace_sample=sample_n, traced_msgs_per_rep=k,
+        untraced_msgs_per_sec=untraced, traced_msgs_per_sec=traced,
+        best_untraced_msgs_per_sec=best_plain,
+        best_traced_msgs_per_sec=best_traced, overhead_frac=overhead,
+        budget_frac=0.02, within_budget=overhead <= 0.02,
+        merged_hosts=len(merged["hosts"]), merged_messages=prop["messages"],
+        merged_deliveries=prop["deliveries"], prop_p50_s=prop["p50_s"],
+        prop_p99_s=prop["p99_s"],
+        per_hop={name: dict(count=h["count"], p50_s=h["p50"],
+                            p99_s=h["p99"])
+                 for name, h in prop["per_hop"].items()})
+
+
+def live_campaigns() -> dict:
+    """The canon's two live-only campaigns through ``run_live_scenario`` at
+    their spec's 16 hosts, each graded PASS by the spec's own SLO."""
+    from go_libp2p_pubsub_torch import scenario
+
+    out = {}
+    for name in LIVE_CAMPAIGNS:
+        spec = scenario.build(name)
+        t0 = time.perf_counter()
+        res = scenario.run_live_scenario(spec)
+        wall = time.perf_counter() - t0
+        rec = res.record
+        if not res.verdict.passed:
+            fail(f"live campaign {name}: {res.verdict.to_dict()}")
+        if rec["epoch_spread"][-1] != 0 or rec["duplicate_deliveries"][-1]:
+            fail(f"live campaign {name}: epoch spread "
+                 f"{rec['epoch_spread'][-1]}, duplicates "
+                 f"{rec['duplicate_deliveries'][-1]}")
+        out[name] = dict(
+            verdict="PASS", wall_s=wall, n_hosts=spec.live["n_hosts"],
+            n_publishes=res.n_publishes, heal_s=res.heal_s,
+            channels={k: float(v[-1]) for k, v in rec.items()
+                      if getattr(v, "ndim", 0) == 1},
+            criteria=res.verdict.to_dict()["criteria"])
+    specs = scenario.build_all(None)
+    runs = [s.name for s in specs if scenario.sim_supported(s)
+            or scenario.live_supported(s) or scenario.streaming_supported(s)]
+    if len(runs) != len(specs):
+        fail(f"the port runs {len(runs)} of {len(specs)} canon campaigns")
+    out["canon"] = dict(runs=len(runs), of=len(specs))
+    return out
+
+
+def live_phase(dev, card: str):
+    """Phase 11.  Returns the kernels' launches in the device-validated
+    tree (K1/K2 over the whole phase, which must be 0)."""
+    from go_libp2p_pubsub_torch.ops import cuda_gossip
+
+    t_phase = time.perf_counter()
+    cuda_gossip.reset_launches()
+    envs, forged = live_window()
+    t0 = time.perf_counter()
+    device = live_tree(dev, envs, forged, "device")
+    print(f"live device_tree: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    native_tree = live_tree(dev, envs, forged, "native")
+    print(f"live native_tree: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    obs = live_obs(dev)
+    print(f"live obs: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    campaigns = live_campaigns()
+    print(f"live campaigns: {time.perf_counter() - t0:.1f} s", flush=True)
+    canon = campaigns.pop("canon")
+    print(f"live: the port runs {canon['runs']} of {canon['of']} canon "
+          f"campaigns", flush=True)
+    launches = {"gossip_propagate": cuda_gossip.propagate.launches,
+                "gossip_exchange": cuda_gossip.exchange_select.launches,
+                "ed25519_verify": device["e1_launches"]}
+    if launches["gossip_propagate"] or launches["gossip_exchange"]:
+        fail(f"phase live launched K1/K2: {launches}")
+    seconds = time.perf_counter() - t_phase
+    emit(dict(phase="live", seconds=seconds, card=card,
+              n_hosts=LIVE["n_hosts"], window=len(envs),
+              forged=sorted(forged), device_tree=device,
+              native_tree=native_tree, obs=obs, campaigns=campaigns,
+              canon_runs=canon, launches=launches, budget_s=LIVE_BUDGET_S))
+    if seconds > LIVE_BUDGET_S:
+        fail(f"phase live took {seconds:.1f} s, over {LIVE_BUDGET_S}")
+    return launches
+
+
 def main() -> None:
     import argparse
 
@@ -3430,6 +3792,7 @@ def main() -> None:
     tree_launches = tree_phase(dev, card)
     coded_launches = coded_phase(dev, card)
     sharded_launches = sharded_phase(dev, card)
+    live_launches = live_phase(dev, card)
     for r in records:
         r["launches"] = launches[r["name"]]
         r["launches_scenario"] = scenario_launches[r["name"]]
@@ -3438,6 +3801,7 @@ def main() -> None:
         r["launches_tree"] = tree_launches[r["name"]]
         r["launches_coded"] = coded_launches[r["name"]]
         r["launches_sharded"] = sharded_launches[r["name"]]
+        r["launches_live"] = live_launches[r["name"]]
         emit(dict(phase="kernel", **r))
     emit({"kernels": records})
     print(card, flush=True)

@@ -1,13 +1,15 @@
 """Typed protocol configuration for the PyTorch port.
 
-A copy of ``TreeOpts``, ``SimParams``, ``GossipSubParams`` and
-``ScoreParams`` from the JAX package's ``config.py``, field for field,
-with the same defaults and the same validation, and the reference's
-fanout constants ``DefaultTreeWidth=2`` / ``DefaultTreeMaxWidth=5``
-(``pubsub.go:16-17``).  The port keeps its own copy because importing the
-JAX package pulls in ``jax`` (its ``__init__`` imports ``api.py``);
-``tests/test_torch_scaffold.py`` and ``tests/test_torch_routers.py`` pin
-the two copies to each other.
+A copy of ``TreeOpts``, ``RetryOpts``, ``SimParams``, ``GossipSubParams``
+and ``ScoreParams`` from the JAX package's ``config.py``, field for field,
+with the same defaults and the same validation, the reference's fanout
+constants ``DefaultTreeWidth=2`` / ``DefaultTreeMaxWidth=5``
+(``pubsub.go:16-17``) and the live plane's ``SUB_REPAIR_TIMEOUT_S`` and
+``DELIVERY_BUFFER`` (``client.go:14``, ``:79``).  The port keeps its own
+copy because importing the JAX package pulls in ``jax`` (its ``__init__``
+imports ``api.py``); ``tests/test_torch_scaffold.py``,
+``tests/test_torch_routers.py`` and ``tests/test_torch_net.py`` pin the
+two copies to each other.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Any, Dict
 
 DEFAULT_TREE_WIDTH = 2       # reference pubsub.go:16
 DEFAULT_TREE_MAX_WIDTH = 5   # reference pubsub.go:17
+SUB_REPAIR_TIMEOUT_S = 15.0  # reference client.go:14
+DELIVERY_BUFFER = 16         # reference client.go:79
 
 
 def _validate_positive(name: str, value: int, upper: int = 1 << 20) -> None:
@@ -55,6 +59,40 @@ class TreeOpts:
         ``// TODO: check these values``); we reject nonsense instead.
         """
         return cls(tree_width=tree_width, tree_max_width=tree_max_width)
+
+
+@dataclass(frozen=True)
+class RetryOpts:
+    """Retry/backoff budget for the live plane's control paths
+    (``net/policy.py``).
+
+    The reference has no retry layer at all — each dial is one attempt and
+    the only deadline is ``SubRepairTimeout`` (``client.go:14``).  These
+    defaults keep the clean path invisible (first attempt, no sleeps) while
+    bounding how long a faulted path may thrash: attempts are capped, the
+    decorrelated-jitter backoff is capped per sleep (``max_delay_s``) and
+    overall (``deadline_s``), and ``breaker_failures`` consecutive failures
+    open a per-class circuit breaker that fast-fails until ``breaker_reset_s``
+    elapses.
+    """
+
+    max_attempts: int = 3
+    base_delay_s: float = 0.05
+    max_delay_s: float = 2.0
+    deadline_s: float = 10.0
+    breaker_failures: int = 16
+    breaker_reset_s: float = 2.0
+
+    def __post_init__(self) -> None:
+        _validate_positive("max_attempts", self.max_attempts, 1 << 10)
+        _validate_positive("breaker_failures", self.breaker_failures, 1 << 20)
+        if self.base_delay_s <= 0 or self.max_delay_s < self.base_delay_s:
+            raise ValueError(
+                "require 0 < base_delay_s <= max_delay_s, got "
+                f"{self.base_delay_s}/{self.max_delay_s}"
+            )
+        if self.deadline_s <= 0 or self.breaker_reset_s <= 0:
+            raise ValueError("deadline_s and breaker_reset_s must be > 0")
 
 
 @dataclass(frozen=True)

@@ -6,14 +6,23 @@ modules, pinned to their originals by the tests):
   spans ride the engine's checkpoint, so a crash is an annotated gap;
 - :mod:`.blackbox` -- the bounded ring of per-chunk telemetry frames the
   watchdog dumps to a post-mortem JSON on ``restart_engine``;
-- :mod:`.export` -- the ``--trace-out`` artifact builders.
-
-The cross-host merge and the HTTP endpoint of the JAX package are not
-ported yet.
+- :mod:`.export` -- the ``--trace-out`` artifact builders;
+- :mod:`.merge` -- the cross-host collector: per-host live ledgers
+  (``obs-span-host/1``) fold into one ``obs-span-merged/1`` artifact of
+  end-to-end publish-to-delivery traces, propagation quantiles, the
+  per-hop breakdown and failover windows as annotated gaps;
+- :mod:`.server` -- the ``/metrics`` (Prometheus) and ``/debug`` HTTP
+  endpoint over one ``MetricsRegistry``.
 """
 
 from .blackbox import BlackBox
 from .export import build_record_artifact, build_span_artifact, write_json
+from .merge import (
+    build_host_span_artifact,
+    merge_host_artifacts,
+    propagation_latencies,
+)
+from .server import ObsHTTPServer
 from .spans import (
     HOP_STAGES,
     STAGES,
@@ -26,12 +35,16 @@ from .spans import (
 __all__ = [
     "BlackBox",
     "HOP_STAGES",
+    "ObsHTTPServer",
     "STAGES",
     "SpanLedger",
+    "build_host_span_artifact",
     "build_record_artifact",
     "build_span_artifact",
     "content_hash",
     "envelope_span_key",
     "live_span_key",
+    "merge_host_artifacts",
+    "propagation_latencies",
     "write_json",
 ]

@@ -188,11 +188,20 @@ def _launch(rows: torch.Tensor, ladder: str, window: int,
             rows.data_ptr(), table.data_ptr(), out.data_ptr(), n, w, lanes,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(code, "ed25519_verify launch")
-    verify.launches += 1
+    count_launch()
     return out
 
 
 verify.launches = 0
+_count_lock = threading.Lock()
+
+
+def count_launch() -> None:
+    """Add one to E1's launch count, under a lock: the live plane's
+    subscribers flush from executor threads at once, and an unlocked
+    ``+=`` can lose counts."""
+    with _count_lock:
+        verify.launches += 1
 
 
 def fe_mul_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -216,4 +225,5 @@ def fe_mul_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def reset_launches() -> None:
     """Set E1's launch count to 0."""
-    verify.launches = 0
+    with _count_lock:
+        verify.launches = 0

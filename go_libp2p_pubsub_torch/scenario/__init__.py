@@ -6,14 +6,14 @@ the card.
   (``gossipsub`` and ``multitopic`` families), and the serving plane's
   publish timeline (``compile_streaming_plan``);
 - :mod:`.runner` -- execution, traces, bit-for-bit replay;
+- :mod:`.live_runner` -- the same campaigns over real sockets and chaos
+  (the live plane, ``net/live.py``);
 - :mod:`.streaming_runner` -- campaigns as open streams through the
   ingest ring into the resident engine, with the watchdog, the
   controller and the staged faults;
 - :mod:`.slo` -- verdicts graded from the flight record;
 - :mod:`.canon` -- the named, committed campaign suite;
 - :mod:`.defense`, :mod:`.realism` -- defense configs, network texture.
-
-The live runner of the JAX package is not ported yet.
 """
 
 from .canon import CANON, build, build_all
@@ -29,6 +29,13 @@ from .defense import (
     STANDING_DEFENSE,
     check_invariants,
     defense_digest,
+)
+from .live_runner import (
+    LivePlaneError,
+    LiveScenarioResult,
+    live_supported,
+    run_live_scenario,
+    sim_supported,
 )
 from .realism import (
     apply_realism,
@@ -62,13 +69,6 @@ from .spec import (
 )
 
 
-def sim_supported(spec: ScenarioSpec) -> bool:
-    """Can this spec be lowered onto the sim plane?  Live-only and
-    streaming-only scenarios have no closed-loop lowering (the canon's
-    sim campaigns: the gossipsub ones and ``multitopic_hot_publisher``)."""
-    return not spec.live_only and not spec.streaming_only
-
-
 __all__ = [
     "CANON",
     "AttackWave",
@@ -77,6 +77,8 @@ __all__ = [
     "Criterion",
     "HARDENED_DEFENSE",
     "LinkWindow",
+    "LivePlaneError",
+    "LiveScenarioResult",
     "PROMOTED_DEFENSE",
     "SLO",
     "STANDING_DEFENSE",
@@ -98,7 +100,9 @@ __all__ = [
     "evaluate",
     "geo_latency_links",
     "heavy_tailed_builder",
+    "live_supported",
     "replay_trace",
+    "run_live_scenario",
     "run_scenario",
     "run_streaming_scenario",
     "run_suite",

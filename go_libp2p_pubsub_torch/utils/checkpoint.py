@@ -14,8 +14,8 @@ host as they are); callers that keep packed words as int32 bit patterns
 map them to the reference's uint32 first (``bridge.multitopic_state_to_
 numpy``).  Restore is template-driven: the structure, every leaf's shape
 and dtype come from the template, and extra or missing leaves are errors.
-``save_topic_state``/``load_topic_state`` (the live plane's) are not
-ported.
+``save_topic_state``/``load_topic_state`` keep the live plane's topic
+control state (``net/live.py``) as small JSON, in the reference's format.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import torch
 
 _META_KEY = "__pubsub_ckpt_meta__"
 _FORMAT_VERSION = 1
+_TOPIC_STATE_VERSION = 1
 
 
 def _atomic_write(path: str, write_fn) -> None:
@@ -156,3 +157,31 @@ def restore(path: str, template: Any) -> Any:
                     f"template {t.shape}/{t.dtype}")
             leaves.append(arr)
     return rebuild(iter(leaves))
+
+
+# ---------------------------------------------------------------------------
+# durable topic state (live-plane root failover, net/live.py)
+# ---------------------------------------------------------------------------
+
+
+def save_topic_state(path: str, state: Dict[str, Any]) -> None:
+    """Persist a live topic's control state ``{epoch, seq, successors,
+    roster, ...}`` atomically (same write-temp/fsync/rename discipline as
+    :func:`save`).  The payload is small JSON, not arrays: a restarted host
+    reads it before joining so it re-enters at the *current* epoch instead
+    of resurrecting a stale tree."""
+    doc = {"format_version": _TOPIC_STATE_VERSION, "state": state}
+    body = json.dumps(doc, sort_keys=True).encode("utf-8")
+    _atomic_write(path, lambda f: f.write(body))
+
+
+def load_topic_state(path: str) -> Dict[str, Any]:
+    """Read a topic-state file written by :func:`save_topic_state`."""
+    with open(path, "rb") as f:
+        doc = json.loads(f.read().decode("utf-8"))
+    if doc.get("format_version") != _TOPIC_STATE_VERSION:
+        raise ValueError(
+            f"topic state format {doc.get('format_version')} != "
+            f"supported {_TOPIC_STATE_VERSION}"
+        )
+    return doc["state"]

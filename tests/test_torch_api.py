@@ -357,13 +357,16 @@ def test_port_receives_what_the_reference_receives(case):
 def test_package_exports_the_references_front_door():
     import go_libp2p_pubsub_tpu as jpkg
 
+    from go_libp2p_pubsub_torch import wire as twire
+
     want = {"TreeOpts", "SimParams", "GossipSubParams", "ScoreParams",
-            "TopicManager", "Topic", "Subscription", "SimHost", "SimNetwork"}
+            "TopicManager", "Topic", "Subscription", "SimHost", "SimNetwork",
+            "Message", "MessageType", "encode_message", "decode_message",
+            "MessageDecoder"}
     assert set(tpkg.__all__) == want
-    assert want <= set(jpkg.__all__)
-    assert not {"Message", "encode_message", "decode_message"} & set(
-        tpkg.__all__)
+    assert want == set(jpkg.__all__) - {"__version__"}
     assert tpkg.SimNetwork is tapi.SimNetwork
+    assert tpkg.MessageDecoder is twire.MessageDecoder
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs no card")
