@@ -189,7 +189,23 @@ Phases (each one fails the run, exit code != 0, on any error):
               statistic and a kill's mask, and the sharded wrappers
               against the unsharded plain functions); and K1/K2 timed at
               a rank's block shapes (B = 25,600 and 204,800) beside their
-              bounds, the gather's bytes reckoned apart.  At most 180 s;
+              bounds, the gather's bytes reckoned apart.  Then the other
+              two families of the reference's multichip dry run: at world
+              size 1 over NCCL, the committed 100,000-peer tree trace
+              replayed through ``TreeCast(mesh=)`` (0 mismatches,
+              ``stranded`` 10 / 10 / 7, drain and churn steps/s and
+              deliveries/s beside phase ``tree``'s unsharded numbers, the
+              mesh's collectives a step) and ``MultiTopicGossipSub(mesh=)``
+              at the serving geometry (2 topics, 100,000 peers; 64
+              publishes a topic, 2 forged; 1% killed after round 8; 24
+              timed rounds) with the ring and with all-gathers, each equal
+              leaf for leaf (digests at rounds 8 and 24) to the unsharded
+              model on the card, K1 48 and K2 12, delivery a topic, forged
+              spread <= 1, p50/p99 equal to each topic's record quantiles;
+              and on the 8 ranks, cut in depth, the tree's join (against
+              the trace and world 1's join) and the
+              multitopic's first 8 rounds (against world 1's).  At most
+              180 s;
 11. live    -- the live plane over loopback sockets at the reference's live
               width (16 hosts, ``bench.py``'s ``LIVE_OBS_SCALE``): host 0
               roots topic ``bench`` and publishes phase ``main``'s
@@ -222,7 +238,10 @@ code.
 
 The last line is ``{"ok": true, "device": {...}}``; nothing else is
 printed after a failure.  E1's block and arm sweeps, which chose its
-launch geometry, are ``tools/e1_sweep.py``.
+launch geometry, are ``tools/e1_sweep.py``.  ``--phase NAME`` (repeatable)
+runs only the named phases after the build, in the order given, and
+prints no kernels or contract line: a development run, e.g.
+``python3 chip_smoke.py --phase tree --phase sharded``.
 """
 
 from __future__ import annotations
@@ -1956,14 +1975,18 @@ def _device_ops(fn, calls: int = 1) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not ops:
-        fail("the CUDA trace holds no device events")
-    return len(ops) / calls
+    # CUPTI has returned an empty trace once in a whole-script run on the
+    # H100 (after many earlier profiler sessions), so an empty trace is
+    # taken again; three empty takes fail.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if ops:
+            return len(ops) / calls
+    fail("the CUDA trace holds no device events (3 takes)")
 
 
 def tree_replay(dev, card: str):
@@ -2418,6 +2441,7 @@ def tree_phase(dev, card: str):
     sections = {}
     t0 = time.perf_counter()
     sections["tree_100k"] = tree_replay(dev, card)
+    TREE_UNSHARDED.update(sections["tree_100k"]["timed"])
     print(f"tree tree_100k: {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.empty_cache()
     sections["bench_treecast"] = bench_treecast_port(dev, card)
@@ -2996,13 +3020,17 @@ def _sharded_rank(device, srcs, verdicts):
     launches = {"gossip_propagate": cuda_gossip.propagate.launches,
                 "gossip_exchange": cuda_gossip.exchange_select.launches}
     canon = sg.gather_canonical(out)
-    return dict(
+    res = dict(
         rank=pm.rank, rollout_s=rollout_s, launches=launches,
         staged=dict(pm.staged), perm_head=sg.perm[:8].tolist(),
         placement_report=sg.placement_report,
         digest=digest(canon) if pm.rank == 0 else None,
         record={k: v.cpu().numpy() for k, v in rec.items()}
         if pm.rank == 0 else None)
+    del canon, out, rec, st, sg
+    torch.cuda.empty_cache()
+    res["families"] = _families_rank(device)
+    return res
 
 
 def _sharded_small_plan(split: bool):
@@ -3135,6 +3163,334 @@ def sharded_block_kernels(dev):
     return out
 
 
+# The last two families of the reference's multichip dry run, sharded: the
+# tree (the 100k trace replayed through TreeCast(mesh=)) and the multitopic
+# model at the serving geometry (serve/stream_trace.py CONFIG: 2 topics,
+# 100,000 peers, 32 slots, degree 16, window 128, heartbeat 4).
+SHARDED_MT_PUBS, SHARDED_MT_FORGED = 64, 2     # a topic
+SHARDED_MT_ROUNDS, SHARDED_MT_KILL_AT = 24, 8  # 1% killed after round 8
+SHARDED_MT_SEED = 0
+# The 8-rank tree runs the join (33 steps) and the drain's first 16 steps,
+# which carry messages through the queue scatters and arrivals.
+SHARDED_TREE_CUT = ("drain", 16)
+SHARDED_TREE_STRANDED = {"join": 10, "drain": 10, "churn": 7}
+TREE_UNSHARDED: dict = {}    # phase tree's timed 100k numbers, same run
+
+
+class _CollectiveCount:
+    """Counts the ``torch.distributed`` collectives issued inside the
+    ``with`` block, by name."""
+
+    NAMES = ("all_gather_into_tensor", "all_gather", "all_reduce",
+             "batch_isend_irecv")
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.counts = dict.fromkeys(self.NAMES, 0)
+        self._orig = {name: getattr(dist, name) for name in self.NAMES}
+
+        def counted(name):
+            def call(*a, **kw):
+                self.counts[name] += 1
+                return self._orig[name](*a, **kw)
+            return call
+
+        for name in self.NAMES:
+            setattr(dist, name, counted(name))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, fn in self._orig.items():
+            setattr(dist, name, fn)
+
+
+def _mt_plan():
+    """The multitopic run's events: 64 publishes a topic into slots 0-63
+    from seeded sources, 2 of each topic's forged, and the 1% kill mask
+    (drawn from one seed)."""
+    import numpy as np
+
+    from go_libp2p_pubsub_torch.serve import stream_trace as S
+
+    rng = np.random.default_rng(17)
+    n, topics = S.CONFIG["n_peers"], S.CONFIG["n_topics"]
+    pubs, forged = [], {}
+    for topic in range(topics):
+        forged[topic] = sorted(int(s) for s in rng.choice(
+            SHARDED_MT_PUBS, SHARDED_MT_FORGED, replace=False))
+        pubs += [(topic, int(rng.integers(n)), slot, slot not in forged[topic])
+                 for slot in range(SHARDED_MT_PUBS)]
+    kill = np.zeros(n, bool)
+    kill[rng.choice(n, n // 100, replace=False)] = True
+    return pubs, forged, kill
+
+
+def _mt_model(device, mesh=None):
+    from go_libp2p_pubsub_torch.models.multitopic import MultiTopicGossipSub
+    from go_libp2p_pubsub_torch.serve import stream_trace as S
+
+    return MultiTopicGossipSub(device=device, mesh=mesh, **S.CONFIG)
+
+
+def _mt_run(model, cut: bool = False):
+    """The plan on ``model``: init, the publishes, 8 rounds (the whole
+    state's digest), then the kill and 16 more -> a dict with the final
+    state; ``cut`` stops after the digest (the 8-rank run)."""
+    import torch
+
+    from go_libp2p_pubsub_torch.ops import cuda_ed25519, cuda_gossip
+    from go_libp2p_pubsub_torch.parallel.gossip_sharded import digest
+
+    pubs, _forged, kill = _mt_plan()
+    dev = model.device
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    st = model.init(seed=SHARDED_MT_SEED)
+    for p in pubs:
+        st = model.publish(st, *p)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    cuda_gossip.reset_launches()
+    e1_before = cuda_ed25519.verify.launches
+    t0 = time.perf_counter()
+    st = model.run(st, SHARDED_MT_KILL_AT)
+    torch.cuda.synchronize(dev)
+    run_s = time.perf_counter() - t0
+    out = dict(init_s=init_s, digest8=digest(model.gather_state(st)))
+    if not cut:
+        t0 = time.perf_counter()
+        st = model.kill_peers(st, kill)
+        st = model.run(st, SHARDED_MT_ROUNDS - SHARDED_MT_KILL_AT)
+        torch.cuda.synchronize(dev)
+        run_s += time.perf_counter() - t0
+    out.update(
+        state=st, run_s=run_s,
+        launches={"gossip_propagate": cuda_gossip.propagate.launches,
+                  "gossip_exchange": cuda_gossip.exchange_select.launches,
+                  "ed25519_verify": cuda_ed25519.verify.launches
+                  - e1_before})
+    return out
+
+
+def _mt_checks(model, run: dict, card: str) -> dict:
+    """Delivery a topic, forged spread, p50/p99 against the record's
+    quantiles (each topic's ``flight_record_round`` histogram: the other
+    topics' window masked out), rounds/s and the final digest."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_torch.ops.histogram import hist_quantile
+    from go_libp2p_pubsub_torch.parallel.gossip_sharded import digest
+
+    st = run["state"]
+    _pubs, forged, _kill = _mt_plan()
+    frac, p50, p99 = (x.cpu().numpy() for x in model.delivery_stats(st))
+    flight = {k: v.cpu().numpy() for k, v in
+              model.flight_record_round(st).items()}
+    rec_q, spread = [], []
+    have = model.have_bool(st)
+    for t in range(model.t):
+        only = torch.arange(model.t, device=model.device)[:, None] == t
+        hist = model.flight_record_round(st._replace(
+            msg_used=st.msg_used & only))["lat_hist"]
+        rec_q.append((float(hist_quantile(hist, 0.5)),
+                      float(hist_quantile(hist, 0.99))))
+        held = torch.stack([have[t, :, s].sum(dtype=torch.int32)
+                            for s in forged[t]])
+        if model.mesh is not None:
+            held = model.mesh.sum(held)
+        spread.append(int(held.max()))
+    per_topic = [float(np.nanmean(frac[t])) for t in range(model.t)]
+    if min(per_topic) < 0.99:
+        fail(f"sharded multitopic: delivery a topic {per_topic}")
+    if max(spread) > 1:
+        fail(f"sharded multitopic: a forged message reached {spread} peers")
+    if [(float(a), float(b)) for a, b in zip(p50, p99)] != rec_q:
+        fail(f"sharded multitopic: delivery_stats p50/p99 {p50} {p99} are "
+             f"not the record's {rec_q}")
+    return dict(
+        delivery_per_topic=per_topic, forged_spread=spread,
+        p50_rounds=[float(x) for x in p50], p99_rounds=[float(x) for x in p99],
+        record_quantiles=rec_q,
+        record_delivery_frac=float(flight["delivery_frac"]),
+        rounds=SHARDED_MT_ROUNDS, run_s=run["run_s"],
+        rounds_per_s=SHARDED_MT_ROUNDS / run["run_s"], init_s=run["init_s"],
+        launches=run["launches"], final_digest=digest(model.gather_state(st)),
+        card=card)
+
+
+def sharded_families_world1(dev, card: str):
+    """World size 1 over NCCL (the caller's group): the 100k tree trace
+    replayed through ``TreeCast(mesh=)`` (0 mismatches, ``stranded`` 10 /
+    10 / 7, drain and churn steps/s and deliveries/s beside phase tree's
+    unsharded numbers, the mesh's collectives a step), and the 100k
+    two-topic multitopic with the ring and with all-gathers, each equal
+    leaf for leaf (digests) to the unsharded model on the card, with its
+    K1/K2 launches counted."""
+    import torch
+
+    from go_libp2p_pubsub_torch.models import tree_trace as TT
+    from go_libp2p_pubsub_torch.ops import tree as tree_ops
+    from go_libp2p_pubsub_torch.parallel.mesh import make_mesh
+    from go_libp2p_pubsub_torch.serve import stream_trace as S
+
+    doc = TT.load_trace()
+    pm = make_mesh(doc["config"]["max_peers"], device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out, ex = TT.port_replay(doc, device=dev, mesh=pm)
+    replay_s = time.perf_counter() - t0
+    diff = TT.mismatches(out, doc)
+    if diff:
+        fail(f"sharded 100k tree replay: mismatches by channel {diff}")
+    stranded = {k: out["phases"][k]["stranded"] for k in out["phases"]}
+    if stranded != SHARDED_TREE_STRANDED:
+        fail(f"sharded 100k tree: stranded {stranded}")
+    rec = {name: doc["phases"][name]["record"] for name in doc["phases"]}
+    timed = {}
+    for name, before in (("drain", "join"), ("churn", "drain")):
+        steps, wall = doc["phases"][name]["steps"], ex["wall_s"][name]
+        delivered = (rec[name]["msgs_delivered_total"]["data"][-1]
+                     - rec[before]["msgs_delivered_total"]["data"][-1])
+        timed[name] = dict(steps=steps, wall_ms=wall * 1e3,
+                           steps_per_s=steps / wall, deliveries=delivered,
+                           deliveries_per_s=delivered / wall,
+                           unsharded=TREE_UNSHARDED.get(name))
+    s0 = ex["states"]["published"]
+    tree_ops.step(s0, pm=pm)
+    torch.cuda.synchronize(dev)
+    with _CollectiveCount() as cc:
+        tree_ops.step(s0, pm=pm)
+    torch.cuda.synchronize(dev)
+    tree = dict(
+        n_peers=pm.n, world=1, backend=pm.backend, steps={
+            name: doc["phases"][name]["steps"] for name in doc["phases"]},
+        stranded=stranded, mismatches=0, replay_s=replay_s, timed=timed,
+        collectives_per_step=cc.counts,
+        peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9, card=card)
+    del out, ex, s0
+    torch.cuda.empty_cache()
+    # The 8 ranks' cut, at world 1: what their document must equal.
+    until, cut_steps = SHARDED_TREE_CUT
+    tree_cut, _ = TT.port_replay(doc, device=dev, mesh=pm, until=until,
+                                 cut_steps=cut_steps)
+    torch.cuda.empty_cache()
+
+    # The multitopic: the ring and the all-gathers on the mesh, then the
+    # unsharded model, in one process on the card.
+    mpm = make_mesh(S.CONFIG["n_peers"], device=dev)
+    want = {"gossip_propagate": 2 * SHARDED_MT_ROUNDS,
+            "gossip_exchange": 2 * SHARDED_MT_ROUNDS // 4,
+            "ed25519_verify": 0}
+    mt, digests = {}, {}
+    for name, mesh in (("ring", mpm.using_ring(True)),
+                       ("allgather", mpm.using_ring(False)), ("plain", None)):
+        model = _mt_model(dev, mesh)
+        torch.cuda.reset_peak_memory_stats(dev)
+        run = _mt_run(model)
+        if run["launches"] != want:
+            fail(f"sharded multitopic {name}: launches {run['launches']}, "
+                 f"expected {want}")
+        mt[name] = _mt_checks(model, run, card)
+        mt[name]["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        digests[name] = (run["digest8"], mt[name].pop("final_digest"))
+        del model, run
+        torch.cuda.empty_cache()
+    leaves = 0
+    for name in ("ring", "allgather"):
+        leaves = _same_digests(digests[name][0], digests["plain"][0],
+                               f"sharded multitopic {name} at round 8")
+        _same_digests(digests[name][1], digests["plain"][1],
+                      f"sharded multitopic {name} at round 24")
+    return dict(tree=tree, multitopic=dict(
+        runs=mt, leaves_equal_unsharded=leaves, n_peers=mpm.n, world=1,
+        backend=mpm.backend)), dict(tree_cut=tree_cut,
+                               mt_digest8=digests["ring"][0],
+                               mt_launches=mt["ring"]["launches"])
+
+
+def _families_rank(device):
+    """The two families on one of the 8 ranks, cut in depth: the tree
+    trace's join and the drain's first steps (``SHARDED_TREE_CUT``), the
+    multitopic's publishes and 8 rounds (two heartbeats) -> rank 0's
+    documents and digests."""
+    import torch
+
+    from go_libp2p_pubsub_torch.models import tree_trace as TT
+    from go_libp2p_pubsub_torch.parallel.mesh import make_mesh
+    from go_libp2p_pubsub_torch.serve import stream_trace as S
+
+    doc = TT.load_trace()
+    pm = make_mesh(doc["config"]["max_peers"], device=device)
+    t0 = time.perf_counter()
+    until, cut_steps = SHARDED_TREE_CUT
+    out, _ = TT.port_replay(doc, device=device, mesh=pm, until=until,
+                            cut_steps=cut_steps)
+    tree_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    model = _mt_model(device, make_mesh(S.CONFIG["n_peers"], device=device)
+                      .using_ring(True))
+    run = _mt_run(model, cut=True)
+    mine = pm.rank == 0
+    return dict(tree=out if mine else None, tree_s=tree_s,
+                mt_digest8=run["digest8"] if mine else None,
+                mt_launches=run["launches"], mt_s=run["init_s"] + run["run_s"])
+
+
+def families_eight(fams, world1: dict, dev) -> dict:
+    """The two families on the 8 ranks (``_families_rank``'s results, by
+    rank), cut in depth, against world 1 and the tree's against the
+    trace: mismatches, leaf digests, launches."""
+    from go_libp2p_pubsub_torch.models import tree_trace as TT
+
+    fam0 = fams[0]
+    until, cut_steps = SHARDED_TREE_CUT
+    cut = ["join", until]
+    trace = TT.load_trace()
+    # The join whole against the trace, the cut drain against world 1's
+    # (every channel, digest and count), and its record against the
+    # trace's first steps.
+    diff = TT.mismatches(fam0["tree"], trace, phases=["join"])
+    diff.update(TT.mismatches(fam0["tree"], world1["tree_cut"]))
+    got = fam0["tree"]["phases"][until]["record"]
+    for ch, want in trace["phases"][until]["record"].items():
+        if got.get(ch) != dict(want, data=want["data"][:cut_steps]):
+            diff[f"{until}.record.{ch} against the trace"] = 1
+    if diff:
+        fail(f"{len(fams)} ranks' sharded tree: mismatches by channel {diff}")
+    tree_leaves = _same_digests(
+        {k: v["sha256"] for k, v in fam0["tree"]["phases"][
+            until]["digest"].items()},
+        {k: v["sha256"] for k, v in world1["tree_cut"]["phases"][
+            until]["digest"].items()},
+        f"{len(fams)} ranks' tree against world 1 ({until}, "
+        f"{cut_steps} steps)")
+    mt_leaves = _same_digests(
+        fam0["mt_digest8"], world1["mt_digest8"],
+        f"{len(fams)} ranks' multitopic against world 1 (round 8)")
+    want = {"gossip_propagate": 2 * SHARDED_MT_KILL_AT,
+            "gossip_exchange": 2 * SHARDED_MT_KILL_AT // 4,
+            "ed25519_verify": 0}
+    for rank, f in enumerate(fams):
+        if f["mt_launches"] != want:
+            fail(f"rank {rank}: multitopic launches {f['mt_launches']}, "
+                 f"want {want}")
+    return dict(
+        world=len(fams), backend="gloo", device=str(dev),
+        tree=dict(phases=list(cut), steps={
+            k: fam0["tree"]["phases"][k]["steps"] for k in cut},
+            stranded={k: fam0["tree"]["phases"][k]["stranded"] for k in cut},
+            mismatches=0, leaves_equal_world1=tree_leaves,
+            seconds=[f["tree_s"] for f in fams]),
+        multitopic=dict(rounds=SHARDED_MT_KILL_AT,
+                        leaves_equal_world1=mt_leaves,
+                        launches=fam0["mt_launches"],
+                        seconds=[f["mt_s"] for f in fams]))
+
+
 def sharded_world1(dev, card, srcs, verdicts, verify_s, forged):
     """World size 1 over NCCL on the card: the closed loop at 204,800
     peers, warm and timed 48-round recorded rollouts, the phase split
@@ -3255,7 +3611,11 @@ def sharded_world1(dev, card, srcs, verdicts, verify_s, forged):
             plan = _sharded_small_plan(split)
             small[("card", 1, split)] = run_plan(dev, plan)
             small[("cpu", 1, split)] = run_plan("cpu", plan, group=cpu_group)
-        return summary, world1, launches, small
+        t0 = time.perf_counter()
+        families, world1["families"] = sharded_families_world1(dev, card)
+        print(f"sharded families world1: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return summary, world1, launches, small, families
     finally:
         dist.destroy_process_group()
 
@@ -3312,7 +3672,7 @@ def sharded_phase(dev, card: str):
     # 2. World size 1 over NCCL, and the R = 1 small runs.
     t0 = time.perf_counter()
     cuda_ed25519.reset_launches()
-    summary, world1, launches, small = sharded_world1(
+    summary, world1, launches, small, families = sharded_world1(
         dev, card, srcs, verdicts, verify_s, forged)
     launches["ed25519_verify"] = cuda_ed25519.verify.launches
     print(f"sharded world1: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3341,6 +3701,10 @@ def sharded_phase(dev, card: str):
                             "8 ranks against world 1 (canonical state)")
     _same_records(ranks8[0]["record"], world1["record"],
                   "8 ranks against world 1 (flight record)")
+
+    families["eight_ranks"] = families_eight(
+        [r["families"] for r in ranks8], world1["families"], dev)
+    launches["multitopic"] = world1["families"]["mt_launches"]
 
     # The port's plain GossipSub at the same seed, unplaced.
     t0 = time.perf_counter()
@@ -3398,7 +3762,7 @@ def sharded_phase(dev, card: str):
                              steps=SHARDED_SMALL_STEPS, worlds=[1, 4],
                              values_compared=compared),
         block_kernels={str(b): v for b, v in blocks.items()},
-        budget_s=SHARDED_BUDGET_S))
+        families=families, budget_s=SHARDED_BUDGET_S))
     if seconds > SHARDED_BUDGET_S:
         fail(f"phase sharded took {seconds:.1f} s, over {SHARDED_BUDGET_S}")
     return launches
@@ -3745,6 +4109,11 @@ def live_phase(dev, card: str):
     return launches
 
 
+PHASES = {"main": main_path, "scenario": scenario_phase,
+          "serve": serve_phase, "tree": tree_phase, "coded": coded_phase,
+          "sharded": sharded_phase, "live": live_phase}
+
+
 def main() -> None:
     import argparse
 
@@ -3752,6 +4121,9 @@ def main() -> None:
     ap.add_argument("--e1-baseline", metavar="DIR",
                     help="also time the E1 of the checkout at DIR against "
                     "this one, in turns (phase ed25519)")
+    ap.add_argument("--phase", action="append", choices=sorted(PHASES),
+                    help="run only this phase after the build (repeatable, "
+                    "in the order given); prints no kernels or contract line")
     args = ap.parse_args()
     try:
         import torch
@@ -3769,20 +4141,28 @@ def main() -> None:
     print(card, flush=True)
     dev = torch.device("cuda", 0)
 
+    # A run of chosen phases builds E1 only when one of them launches it.
+    with_e1 = not args.phase or bool({"main", "live"} & set(args.phase))
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(4) as ex:
         kernels = ex.submit(cuda_gossip.build, True)
-        e1 = ex.submit(cuda_ed25519.build, True)
+        e1 = ex.submit(cuda_ed25519.build, True) if with_e1 else None
         ed = ex.submit(native.build)
         base = (ex.submit(e1_baseline, args.e1_baseline)
                 if args.e1_baseline else None)
         ptxas = check_ptxas(kernels.result())
-        e1_ptxas = check_e1_ptxas(e1.result())
+        e1_ptxas = check_e1_ptxas(e1.result()) if with_e1 else None
         ed.result()
         baseline = base.result() if base else None
-    imads = fe_mul_imads()
+    imads = fe_mul_imads() if with_e1 else None
     emit(dict(phase="build", seconds=time.perf_counter() - t0, ptxas=ptxas,
               e1_ptxas=e1_ptxas, e1_fe_mul_imads=imads))
+    if args.phase:
+        torch.cuda.set_device(dev)
+        torch.zeros(1, device=dev)          # the context, before any phase
+        for name in args.phase:
+            PHASES[name](dev, card)
+        return
 
     records = check_kernels(dev, ptxas)
     records.append(check_ed25519(dev, e1_ptxas, imads, card, baseline))
@@ -3801,6 +4181,8 @@ def main() -> None:
         r["launches_tree"] = tree_launches[r["name"]]
         r["launches_coded"] = coded_launches[r["name"]]
         r["launches_sharded"] = sharded_launches[r["name"]]
+        r["launches_sharded_multitopic"] = sharded_launches[
+            "multitopic"][r["name"]]
         r["launches_live"] = live_launches[r["name"]]
         emit(dict(phase="kernel", **r))
     emit({"kernels": records})

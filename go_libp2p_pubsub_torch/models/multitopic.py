@@ -24,12 +24,25 @@ state: ``step`` is a host ``int`` (the heartbeat schedule and the
 opportunistic-graft ticks are host branches); the ``edge_live`` refresh
 after PX is a ``torch.where`` over both of the reference's ``lax.cond``
 branches; ``rollout_events`` is a host loop whose event tests are ``if``s
-on the numpy rows.  The sharded path (``multitopic_state_shardings``) is
-not ported.
+on the numpy rows.
+
+Sharded (``mesh=``, a ``parallel.mesh.PeerMesh``; the JAX package's
+``multitopic_state_shardings`` run of ``dryrun_multichip``): one process
+a rank, each holding the block of rows ``[row0, row0 + B)`` of every
+peer-dim leaf (axis 1 of the topic-stacked ones, axis 0 of the shared
+ones; placement is the identity) and the message metadata and keys
+whole.  The inner single-topic model is ``GossipSub(mesh=)``, so each
+topic's round runs K1 on the block (``cuda_gossip.propagate_sharded``) and
+its exchange K2 (``exchange_select_sharded``); the heartbeat's reads at a
+neighbor's row go through the mesh, every per-peer draw takes the whole
+draw's rows, and every count that crosses ranks is an integer.  The run
+equals the unsharded one bit for bit, leaf for leaf.  ``rollout_events``
+and the streaming engine's views run unsharded.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -41,9 +54,9 @@ from ..ops import cuda_gossip
 from ..ops import histogram as hist_ops
 from ..ops import rng
 from ..ops import scoring as scoring_ops
-from ..ops.gossip import heartbeat_mesh
+from ..ops.gossip import heartbeat_mesh, uniform_by_uid
 from ..ops.gossip_packed import exchange_prep
-from ..ops.graphs import decode_index_plane, safe_gather, top_mask
+from ..ops.graphs import decode_index_plane, top_mask
 from ..ops.px import px_rewire
 from ..ops.schedule import MultiTopicEvents
 from ..ops.scoring import GlobalCounters, TopicCounters, segment_sum
@@ -52,6 +65,7 @@ from .gossipsub import (
     FLIGHT_HIST_BINS,
     GossipState,
     GossipSub,
+    _hist_quantile_int,
     _nanquantile_int,
 )
 
@@ -101,8 +115,8 @@ class MultiTopicState(NamedTuple):
 # reference's ``MULTITOPIC_*``): per-topic leaves stack as [T, N, ...] so
 # their peer dim is axis 1; shared leaves lead with N; message metadata and
 # per-topic PRNG keys replicate.  Exhaustive by name -- adding a field
-# without classifying it here fails ``multitopic_state_shardings``.  (The
-# sharded multitopic rollout itself is not ported: ROADMAP.)
+# without classifying it here fails ``multitopic_state_shardings``.
+# ``MultiTopicGossipSub(mesh=)`` cuts its state by it.
 MULTITOPIC_REPLICATED_FIELDS = frozenset({
     "msg_valid", "msg_birth", "msg_active", "msg_used", "keys", "step",
 })
@@ -118,6 +132,10 @@ _MT_PEER_DIM0_FIELDS = frozenset({
     "nbrs", "rev", "nbr_valid", "outbound", "alive", "gcounters", "scores",
     "gossip_mute", "gossip_delay",
 })
+# Every peer-dim field with its peer axis.
+MULTITOPIC_ALL_PEER_DIMS = {
+    **{f: 0 for f in _MT_PEER_DIM0_FIELDS}, **MULTITOPIC_PEER_DIMS
+}
 
 
 def multitopic_state_shardings(st: "MultiTopicState", n_peers: int,
@@ -151,9 +169,7 @@ def multitopic_state_shardings(st: "MultiTopicState", n_peers: int,
                 )
     return state_blocks(
         st, n_peers, world, replicated=MULTITOPIC_REPLICATED_FIELDS,
-        peer_dim={
-            **{f: 0 for f in _MT_PEER_DIM0_FIELDS}, **MULTITOPIC_PEER_DIMS
-        },
+        peer_dim=MULTITOPIC_ALL_PEER_DIMS,
     )
 
 
@@ -192,7 +208,9 @@ class _StagedRows:
 
 class MultiTopicGossipSub:
     """T-topic GossipSub simulator sharing one connection graph; state
-    lives on ``device`` (default ``"cuda"``, which raises without a card)."""
+    lives on ``device`` (default ``"cuda"``, which raises without a card),
+    sharded over ``mesh`` (a ``parallel.mesh.PeerMesh`` on that device)
+    when given."""
 
     def __init__(
         self,
@@ -205,6 +223,7 @@ class MultiTopicGossipSub:
         score_params: Optional[ScoreParams] = None,
         heartbeat_steps: int = 8,
         index_dtype_override=None,
+        mesh=None,
         device="cuda",
     ):
         self.t = n_topics
@@ -212,9 +231,15 @@ class MultiTopicGossipSub:
             n_peers=n_peers, n_slots=n_slots, conn_degree=conn_degree,
             msg_window=msg_window, params=params, score_params=score_params,
             heartbeat_steps=heartbeat_steps,
-            index_dtype_override=index_dtype_override, device=device,
+            index_dtype_override=index_dtype_override, mesh=mesh,
+            device=device,
         )
         self.device = self.gs.device
+        # The sharded rollout: this rank's block of rows [row0, row0 + nl)
+        # and its global row ids, by which every per-peer draw is taken.
+        self.mesh = self.gs.peer_mesh
+        self.nl, self.row0 = self.gs.nl, self.gs.row0
+        self._uid = None if self.mesh is None else self.gs._uid
         self.n, self.k, self.m, self.w = (
             self.gs.n, self.gs.k, self.gs.m, self.gs.w)
         self.params = self.gs.params
@@ -236,7 +261,7 @@ class MultiTopicGossipSub:
         no per-edge delay, no self-promoters, all neighbors subscribed (the
         topic liveness already masks them), inactive fanout age."""
         if self._consts is None:
-            n, k, w, dev = self.n, self.k, self.w, self.device
+            n, k, w, dev = self.nl, self.k, self.w, self.device
             self._consts = dict(
                 ones_nk=torch.ones((n, k), dtype=torch.bool, device=dev),
                 inactive_age=torch.full((n,), _AGE_CAP, dtype=torch.int32,
@@ -253,15 +278,32 @@ class MultiTopicGossipSub:
     def init(self, seed: int = 0,
              subscribed: Optional[np.ndarray] = None) -> MultiTopicState:
         """Fresh state after 3 warmup heartbeats; ``subscribed`` (bool[T,
-        N]) masks topic membership (default: every peer in every topic)."""
-        nbrs, rev, nbr_valid, outbound = self.gs.build_graph(seed)
-        t, n, k, m, w, dev = self.t, self.n, self.k, self.m, self.w, self.device
+        N]) masks topic membership (default: every peer in every topic).
+        Sharded: the whole fresh state is built on the host, cut to the
+        rank's block (``multitopic_state_shardings``) and warmed up on the
+        mesh."""
+        if self.mesh is None:
+            return self._warmup(self._fresh_state(seed, subscribed,
+                                                  self.device))
+        from ..parallel.mesh import shard_state
+
+        whole = self._fresh_state(seed, subscribed, torch.device("cpu"))
+        multitopic_state_shardings(whole, self.n, self.mesh.world)
+        return self._warmup(shard_state(
+            whole, self.mesh, replicated=MULTITOPIC_REPLICATED_FIELDS,
+            peer_dim=MULTITOPIC_ALL_PEER_DIMS))
+
+    def _fresh_state(self, seed: int, subscribed, dev) -> MultiTopicState:
+        """The whole state before the warmup heartbeats, on ``dev``."""
+        nbrs, rev, nbr_valid, outbound = (
+            x.to(dev) for x in self.gs.build_graph(seed))
+        t, n, k, m, w = self.t, self.n, self.k, self.m, self.w
         if subscribed is None:
             subscribed = np.ones((t, n), bool)
         subscribed = np.asarray(subscribed)
         if subscribed.shape != (t, n):
             raise ValueError(f"subscribed must be [T={t}, N={n}]")
-        sub = self.gs._t(subscribed, torch.bool)
+        sub = torch.as_tensor(subscribed, dtype=torch.bool, device=dev)
         alive0 = torch.ones(n, dtype=torch.bool, device=dev)
 
         def zeros(shape, dt):
@@ -301,7 +343,7 @@ class MultiTopicGossipSub:
                              torch.arange(t, device=dev)),
             step=0,
         )
-        return self._warmup(st)
+        return st
 
     # Narrow index storage <-> the int32 view every round consumes.
     def _widen_indices(self, st: MultiTopicState) -> MultiTopicState:
@@ -326,10 +368,18 @@ class MultiTopicGossipSub:
         slot recycled in that topic's planes only), with the single-topic
         first-hop rules: flood-publish to above-``publish_threshold`` topic
         peers, or fanout for a non-subscribed publisher when flooding is
-        off.  ``valid`` is a host bool (the validation verdict)."""
+        off.  ``valid`` is a host bool (the validation verdict).
+
+        Sharded, as ``GossipSub.publish``: the rank that holds ``src``
+        picks the targets; their ids reach every rank in one integer
+        all-reduce MAX, and each rank writes the offered copies into the
+        targets it holds.  The [T, M] metadata and the keys update alike
+        on every rank."""
         p, sp = self.params, self.score_params
-        n, k, w = self.n, self.k, self.w
+        n, k, w, b = self.n, self.k, self.w, self.nl
         topic, src, slot, valid = int(topic), int(src), int(slot), bool(valid)
+        # The publisher's local row, None on a rank that does not hold it.
+        ls = src - self.row0 if 0 <= src - self.row0 < b else None
         word, bit = divmod(slot, bitpack.WORD)
         bitv = bitpack.as_int32_bits(1 << bit)
 
@@ -340,13 +390,14 @@ class MultiTopicGossipSub:
 
         have_w, fresh_w = cleared(st.have_w), cleared(st.fresh_w)
         pend_w, iwant_w = cleared(st.gossip_pend_w), cleared(st.iwant_pend_w)
-        have_w[topic, src, word] |= bitv
-        fresh_w[topic, src, word] |= bitv
         # Element stores of Python scalars go through ``fill_``: an indexed
         # assignment would copy the scalar from the host and synchronise.
         first_step = st.first_step.clone()
         first_step[topic, :, slot].fill_(-1)
-        first_step[topic, src, slot].fill_(st.step)
+        if ls is not None:
+            have_w[topic, ls, word] |= bitv
+            fresh_w[topic, ls, word] |= bitv
+            first_step[topic, ls, slot].fill_(st.step)
         mv, mb = st.msg_valid.clone(), st.msg_birth.clone()
         ma, mu = st.msg_active.clone(), st.msg_used.clone()
         mv[topic, slot].fill_(valid)
@@ -358,32 +409,40 @@ class MultiTopicGossipSub:
         kpub, knext = rng.split(st.keys[topic], 2).unbind(0)
         keys = st.keys.clone()
         keys[topic] = knext
-        eligible = st.edge_live[topic, src] & (
-            st.scores[src] >= sp.publish_threshold)
         fanout, fanout_age = st.fanout, st.fanout_age
-        if p.flood_publish:
-            targets = eligible
-        else:
-            cur = st.fanout[topic, src] & eligible
-            want = torch.clamp(p.d - cur.sum(), 0, p.d).to(torch.int32)
-            add = top_mask(
-                torch.where((eligible & ~cur)[None, :],
-                            rng.uniform(kpub, (1, k)), -torch.inf),
-                want[None], kmax=p.d,
-            )[0]
-            newf = cur | add
-            is_sub = st.subscribed[topic, src]
-            targets = torch.where(is_sub, False, newf)
-            fanout = st.fanout.clone()
-            fanout[topic, src] = torch.where(is_sub, st.fanout[topic, src],
-                                             newf)
-            fanout_age = st.fanout_age.clone()
-            fanout_age[topic, src] = torch.where(
-                is_sub, st.fanout_age[topic, src], 0)
+        ids = torch.full((k,), -1, dtype=torch.int32, device=self.device)
+        if ls is not None:
+            eligible = st.edge_live[topic, ls] & (
+                st.scores[ls] >= sp.publish_threshold)
+            if p.flood_publish:
+                targets = eligible
+            else:
+                cur = st.fanout[topic, ls] & eligible
+                want = torch.clamp(p.d - cur.sum(), 0, p.d).to(torch.int32)
+                add = top_mask(
+                    torch.where((eligible & ~cur)[None, :],
+                                rng.uniform(kpub, (1, k)), -torch.inf),
+                    want[None], kmax=p.d,
+                )[0]
+                newf = cur | add
+                is_sub = st.subscribed[topic, ls]
+                targets = torch.where(is_sub, False, newf)
+                fanout = st.fanout.clone()
+                fanout[topic, ls] = torch.where(is_sub, st.fanout[topic, ls],
+                                                newf)
+                fanout_age = st.fanout_age.clone()
+                fanout_age[topic, ls] = torch.where(
+                    is_sub, st.fanout_age[topic, ls], 0)
+            ids = torch.where(targets, decode_index_plane(st.nbrs[ls]), n)
         # Offered copies land next round through the pend fold (valid
         # only); the hold arms only on an idle empty row that got a bit.
-        rows = torch.where(targets, decode_index_plane(st.nbrs[src]), n).long()
-        rows_c = torch.clamp(rows, 0, n - 1)
+        # Target rows of this rank's block; row b (dropped) elsewhere.
+        if self.mesh is None:
+            rows = ids.long()
+        else:
+            loc = self.mesh.max(ids).long() - self.row0
+            rows = torch.where((loc >= 0) & (loc < b), loc, b)
+        rows_c = torch.clamp(rows, 0, b - 1)
         pend_t = pend_w[topic]
         gathered = pend_t[rows_c]                                # [K, W]
         ext = torch.cat([pend_t, pend_t.new_zeros((1, w))])
@@ -393,14 +452,14 @@ class MultiTopicGossipSub:
         else:
             upd = gathered
         ext[rows] = upd
-        pend_w[topic] = ext[:n]
+        pend_w[topic] = ext[:b]
         hold = st.pend_hold.clone()
         cur_hold = st.pend_hold[topic][rows_c]
         arm = (cur_hold <= 0) & (gathered == 0).all(dim=-1) & valid
         hold_ext = torch.cat([st.pend_hold[topic],
                               st.pend_hold.new_zeros(1)])
         hold_ext[rows] = torch.where(arm, st.gossip_delay[rows_c], cur_hold)
-        hold[topic] = hold_ext[:n]
+        hold[topic] = hold_ext[:b]
         return st._replace(
             have_w=have_w, fresh_w=fresh_w, gossip_pend_w=pend_w,
             iwant_pend_w=iwant_w, pend_hold=hold, first_step=first_step,
@@ -410,20 +469,27 @@ class MultiTopicGossipSub:
 
     def set_gossip_delay(self, st: MultiTopicState, delay) -> MultiTopicState:
         """Shared per-peer ingress gossip latency (int32[N])."""
-        return st._replace(gossip_delay=torch.as_tensor(
-            delay, device=self.device).to(torch.int32))
+        return st._replace(gossip_delay=self.gs._local(delay, torch.int32))
 
     def set_gossip_mute(self, st: MultiTopicState, mask) -> MultiTopicState:
         """Mark peers (bool[N]) as promise-breakers in every topic."""
-        return st._replace(gossip_mute=torch.as_tensor(
-            mask, device=self.device).to(torch.bool))
+        return st._replace(gossip_mute=self.gs._local(mask, torch.bool))
 
     def kill_peers(self, st: MultiTopicState, mask) -> MultiTopicState:
         """Abrupt peer failure (bool[N]) in every topic."""
-        alive = st.alive & ~torch.as_tensor(mask, device=self.device).to(
-            torch.bool)
-        return st._replace(alive=alive, edge_live=edge_live_stack(
+        alive = st.alive & ~self.gs._local(mask, torch.bool)
+        return st._replace(alive=alive, edge_live=self._edge_live_stack(
             st.nbr_valid, st.nbrs, alive[None] & st.subscribed))
+
+    def _edge_live_stack(self, nbr_valid, nbrs, topic_alive) -> torch.Tensor:
+        """:func:`edge_live_stack` across the mesh: the remotes' topic
+        liveness read at their rows (one row gather of the [B, T] table)."""
+        if self.mesh is None:
+            return edge_live_stack(nbr_valid, nbrs, topic_alive)
+        wide = decode_index_plane(nbrs)
+        remote = self.mesh.gather(topic_alive.t().contiguous(), wide)
+        return (nbr_valid[None] & (wide >= 0)[None]
+                & remote.permute(2, 0, 1)).contiguous()
 
     # -- transition ---------------------------------------------------------
 
@@ -478,6 +544,11 @@ class MultiTopicGossipSub:
     def _heartbeat(self, st: MultiTopicState) -> MultiTopicState:
         p, sp = self.params, self.score_params
         n, k, hb = self.n, self.k, self.heartbeat_steps
+        pm, b = self.mesh, self.nl
+        # A rank of the sharded rollout passes the global-clipped edge
+        # indices to the mesh maintenance, as GossipSub(mesh=) does.
+        edge_idx = None if pm is None else (
+            torch.clamp(st.nbrs, 0, n - 1), torch.clamp(st.rev, 0, k - 1))
 
         # Tick + decay the topic counters per topic; decay globals once.
         cs = [
@@ -491,11 +562,14 @@ class MultiTopicGossipSub:
         # v1.1 aggregation: the topic components summed over topics (left
         # to right from a zero accumulator, the order of XLA's reduction
         # over T < 32), plus the remote's global components.
-        total = torch.zeros((n, k), dtype=torch.float32, device=self.device)
+        total = torch.zeros((b, k), dtype=torch.float32, device=self.device)
         for c_t in cs:
             total = total + scoring_ops.topic_score(c_t, sp)
-        remote = scoring_ops.global_score(g, sp)[
-            torch.clamp(st.nbrs, 0, n - 1).long()]
+        jidx = torch.clamp(st.nbrs, 0, n - 1)
+        if pm is None:
+            remote = scoring_ops.global_score(g, sp)[jidx.long()]
+        else:
+            remote = pm.gather(scoring_ops.global_score(g, sp, pm), jidx)
         scores = torch.where(st.nbr_valid, total + remote, -torch.inf)
 
         topic_alive = self._topic_alive(st)
@@ -507,7 +581,7 @@ class MultiTopicGossipSub:
                      & (age <= p.history_gossip * hb))
         expired = st.msg_active & (age > p.history_length * hb)
         # One promise-breaker view of each slot's remote serves every topic.
-        serve_ok = ~safe_gather(st.gossip_mute, st.nbrs, True)
+        serve_ok = ~self.gs._safe_gather(st.gossip_mute, st.nbrs, True)
 
         out: Dict[str, List[torch.Tensor]] = {}
 
@@ -524,6 +598,7 @@ class MultiTopicGossipSub:
                 st.backoff[t], st.outbound, do_og,
                 og_threshold=sp.opportunistic_graft_threshold,
                 ignore_backoff=self.gs.graft_spammers,
+                uid=self._uid, edge_idx=edge_idx, pm=pm,
             )
             c2 = scoring_ops.on_graft(
                 scoring_ops.on_prune(cs[t], pruned, sp), grafted)
@@ -533,15 +608,17 @@ class MultiTopicGossipSub:
             # the topic's possession advertises, the scrubbed one dedups.
             if min(p.d_lazy, k) <= 0:
                 iwant_t = torch.zeros_like(have_t)
-                broken_t = torch.zeros((n, k), dtype=torch.float32,
+                broken_t = torch.zeros((b, k), dtype=torch.float32,
                                        device=self.device)
             else:
                 x = exchange_prep(
                     kgossip, kiwant, have_t, new_mesh, st.nbrs, st.rev, el,
                     al, scores, bitpack.pack(gossip_ok[t]), p,
-                    sp.gossip_threshold, serve_ok,
+                    sp.gossip_threshold, serve_ok, uid=self._uid, pm=pm,
                 )
-                iwant_t, broken_p = cuda_gossip.exchange_select(
+                select = (cuda_gossip.exchange_select if pm is None else
+                          partial(cuda_gossip.exchange_select_sharded, pm))
+                iwant_t, broken_p = select(
                     x.jidx_p, x.adv_ok_p, x.accept_p, x.serve_p, x.rows,
                     have2, al, p.max_ihave_length, p.max_iwant_length,
                 )
@@ -555,7 +632,8 @@ class MultiTopicGossipSub:
                 factive, torch.clamp(p.d - fkeep.sum(dim=1), 0, p.d), 0
             ).to(torch.int32)
             fadd = top_mask(
-                torch.where(feligible & ~fkeep, rng.uniform(kfan, (n, k)),
+                torch.where(feligible & ~fkeep,
+                            uniform_by_uid(kfan, (b, k), self._uid),
                             -torch.inf),
                 fwant, kmax=p.d,
             )
@@ -573,7 +651,15 @@ class MultiTopicGossipSub:
         # promises charged by remote id).  Both sums are integer-valued.
         broken = torch.stack(out["broken"]).sum(dim=0)
         promise_ids = torch.where(st.nbr_valid, st.nbrs, n).reshape(-1)
-        promise_viol = segment_sum(broken.reshape(-1), promise_ids, n + 1)[:n]
+        if pm is None:
+            promise_viol = segment_sum(broken.reshape(-1), promise_ids,
+                                       n + 1)[:n]
+        else:
+            # Whole counts, added over the ranks as integers: the float
+            # segment_sum bit for bit.
+            promise_viol = pm.local(pm.index_add_rows(
+                promise_ids, broken.reshape(-1).to(torch.int32))).to(
+                    torch.float32)
         g = g._replace(
             behaviour_penalty=g.behaviour_penalty
             + torch.stack(out["bo_viol"]).sum(dim=0) + promise_viol)
@@ -587,16 +673,17 @@ class MultiTopicGossipSub:
             px = px_rewire(
                 out["kpx"][t], nbrs2, rev2, nv2, ob2, out["backoff"][t],
                 out["mesh"][t], out["pruned"][t], scores, st.alive,
-                sp.accept_px_threshold,
+                sp.accept_px_threshold, uid=self._uid, pm=pm,
             )
             nbrs2, rev2, nv2, ob2 = px.nbrs, px.rev, px.nbr_valid, px.outbound
             backoff.append(px.backoff)
-            connected.append(px.connected.any())
+            connected.append(px.connected.any() if pm is None
+                             else pm.any(px.connected))
         # The reference regathers the liveness caches under lax.cond when a
         # PX edge formed; both branches agree otherwise.
         edge_live = torch.where(
             torch.stack(connected).any(),
-            edge_live_stack(nv2, nbrs2, topic_alive), st.edge_live)
+            self._edge_live_stack(nv2, nbrs2, topic_alive), st.edge_live)
         return st._replace(
             nbrs=nbrs2, rev=rev2, nbr_valid=nv2, outbound=ob2,
             edge_live=edge_live,
@@ -640,7 +727,10 @@ class MultiTopicGossipSub:
                             ) -> Dict[str, torch.Tensor]:
         """One round's telemetry across all topics as device scalars plus
         the int32[B] latency histogram, recounted from the stamp table
-        (summed over topics); ``step`` is added by the caller."""
+        (summed over topics); ``step`` is added by the caller.  Sharded,
+        every count (the histogram, the participants a topic, the degree
+        sum, the live peers, the pending bits) adds over the ranks in one
+        integer all-reduce before any ratio is taken."""
         topic_alive = self._topic_alive(st)                   # [T, N]
         in_window = st.msg_used & st.msg_valid                # [T, M]
         lat = st.first_step - st.msg_birth[:, None, :]
@@ -650,20 +740,27 @@ class MultiTopicGossipSub:
                           FLIGHT_HIST_BINS)
         hist = hist_ops._bin_counts(torch.ones_like(seg), seg,
                                     FLIGHT_HIST_BINS)
-        expected = (topic_alive.sum(dim=1, dtype=torch.int32)
-                    * in_window.sum(dim=1, dtype=torch.int32)).sum(
-                        dtype=torch.int32)
+        part_t = topic_alive.sum(dim=1, dtype=torch.int32)    # [T]
         mesh_deg = (st.mesh & st.nbr_valid[None]).sum(dim=2,
                                                        dtype=torch.int32)
-        part_total = torch.clamp(topic_alive.sum(dtype=torch.int32), min=1)
+        deg_sum = torch.where(topic_alive, mesh_deg, 0).sum(dtype=torch.int32)
+        peers_alive = st.alive.sum(dtype=torch.int32)
+        pending = bitpack.popcount(st.gossip_pend_w).sum(dtype=torch.int32)
+        if self.mesh is not None:
+            v = self.mesh.sum(torch.cat([
+                hist, part_t, torch.stack([deg_sum, peers_alive, pending])]))
+            nb, t = FLIGHT_HIST_BINS, self.t
+            hist, part_t = v[:nb], v[nb:nb + t]
+            deg_sum, peers_alive, pending = v[nb + t:].unbind(0)
+        expected = (part_t * in_window.sum(dim=1, dtype=torch.int32)).sum(
+            dtype=torch.int32)
+        part_total = torch.clamp(part_t.sum(dtype=torch.int32), min=1)
         return {
-            "peers_alive": st.alive.sum(dtype=torch.int32),
+            "peers_alive": peers_alive,
             "delivery_frac": hist.sum(dtype=torch.int32)
             / torch.clamp(expected, min=1),
-            "mesh_degree_mean": torch.where(topic_alive, mesh_deg, 0).sum(
-                dtype=torch.int32) / part_total,
-            "gossip_pending": bitpack.popcount(st.gossip_pend_w).sum(
-                dtype=torch.int32),
+            "mesh_degree_mean": deg_sum / part_total,
+            "gossip_pending": pending,
             "lat_hist": hist,
         }
 
@@ -704,7 +801,11 @@ class MultiTopicGossipSub:
         to the device once, before the first round (``rows`` supplies them
         already staged), and no round reads the device.  With ``record``
         each round adds :meth:`flight_record_round`; the record comes back
-        as host numpy channels, read once after the last round."""
+        as host numpy channels, read once after the last round.
+        Unsharded."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "rollout_events runs unsharded (mesh=None)")
         n_steps = int(events.kill.shape[0])
         rows = rows if rows is not None else _StagedRows(self, events)
         st = self._widen_indices(st)
@@ -734,27 +835,64 @@ class MultiTopicGossipSub:
 
     def delivery_stats(self, st: MultiTopicState):
         """Per-topic (frac f32[T, M], p50 f32[T], p99 f32[T]) over
-        subscribed+alive peers."""
+        subscribed+alive peers.  Sharded, as ``GossipSub(mesh=)``'s: the
+        counts add over the ranks as integers, and each topic's quantiles
+        read the whole run's latencies through a histogram of their
+        whole-round values (every latency is at most ``st.step``)."""
+        pm = self.mesh
         topic_alive = self._topic_alive(st)
         have = self.have_bool(st)
-        alive_n = torch.clamp(topic_alive.sum(dim=1, dtype=torch.int32), min=1)
+        part_n = topic_alive.sum(dim=1, dtype=torch.int32)
         delivered = (have & topic_alive[:, :, None]).sum(dim=1,
                                                          dtype=torch.int32)
+        if pm is not None:
+            part_n, delivered = pm.sum(part_n), pm.sum(delivered)
+        alive_n = torch.clamp(part_n, min=1)
         frac = torch.where(st.msg_used & st.msg_valid,
                            delivered / alive_n[:, None], torch.nan)
         lat = torch.where(st.first_step >= 0,
                           st.first_step - st.msg_birth[:, None, :], -1)
         ok = ((lat >= 0) & st.msg_used[:, None, :] & st.msg_valid[:, None, :]
               & topic_alive[:, :, None])
-        p50 = torch.stack([_nanquantile_int(lat[t], ok[t], 0.5)
+        if pm is None:
+            p50 = torch.stack([_nanquantile_int(lat[t], ok[t], 0.5)
+                               for t in range(self.t)])
+            p99 = torch.stack([_nanquantile_int(lat[t], ok[t], 0.99)
+                               for t in range(self.t)])
+            return frac, p50, p99
+        top = int(st.step) + 1
+        hist = torch.zeros((self.t, top + 1), dtype=torch.int64,
+                           device=self.device)
+        hist.scatter_add_(
+            1, torch.where(ok, lat, top).reshape(self.t, -1).long(),
+            torch.ones((self.t, lat[0].numel()), dtype=torch.int64,
+                       device=self.device))
+        cum = torch.cumsum(pm.sum(hist)[:, :top], dim=1)
+        p50 = torch.stack([_hist_quantile_int(cum[t], 0.5)
                            for t in range(self.t)])
-        p99 = torch.stack([_nanquantile_int(lat[t], ok[t], 0.99)
+        p99 = torch.stack([_hist_quantile_int(cum[t], 0.99)
                            for t in range(self.t)])
         return frac, p50, p99
 
+    def gather_state(self, st: MultiTopicState) -> Dict[str, np.ndarray]:
+        """Every leaf of the whole state as host numpy, by dotted name
+        (sharded: the blocks all-gathered along their peer axes; a
+        collective, so every rank calls it)."""
+        if self.mesh is None:
+            from ..parallel.mesh import _leaves
+
+            return {name: (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                           else np.asarray(v)) for name, v in _leaves(st)}
+        return self.mesh.gather_canonical(st, MULTITOPIC_ALL_PEER_DIMS)
+
+    def _unsharded(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(f"{what} runs unsharded (mesh=None)")
+
     def stream_digest(self, st: MultiTopicState) -> Dict[str, torch.Tensor]:
         """Per-slot completion counters for the streaming engine (device
-        tensors; ``step`` is the host int)."""
+        tensors; ``step`` is the host int).  Unsharded."""
+        self._unsharded("the streaming engine")
         topic_alive = self._topic_alive(st)
         have = self.have_bool(st)
         return {
@@ -772,7 +910,9 @@ class MultiTopicGossipSub:
         """int32[T, M]: the round of the chunk that just ran at which the
         count of participants with ``first_step <= round`` first reached
         ``max(1, completion_frac * participants[t])``; the chunk's first
-        round when it was crossed before, -1 where it has not been."""
+        round when it was crossed before, -1 where it has not been.
+        Unsharded."""
+        self._unsharded("the streaming engine")
         topic_alive = self._topic_alive(st)
         participants = topic_alive.sum(dim=1, dtype=torch.int32)
         targets = torch.clamp(

@@ -140,13 +140,23 @@ def _advance(eng, st, done: Callable, bound: int, steps: Optional[int],
 
 
 def run(eng, hdr: Dict[str, Any], plan: Optional[Dict[str, Any]] = None,
-        clock=time.perf_counter):
+        clock=time.perf_counter, until: Optional[str] = None,
+        cut_steps: Optional[int] = None):
     """The three phases on ``eng`` -> (document body, extras).  ``extras``
     holds the states at each phase boundary and, with ``plan``, the wall
-    seconds of the drain and heal rollouts."""
+    seconds of the drain and heal rollouts.  ``until`` names the last
+    phase to run (a run cut in depth; the document then holds the phases
+    up to it, and ``extras`` no ``conditions``); ``cut_steps`` runs only
+    the first that many steps of that phase when it is ``drain`` or
+    ``churn`` (the phase's record is then a prefix of the whole run's)."""
     n = hdr["config"]["max_peers"]
     phases: Dict[str, Any] = {}
     extras: Dict[str, Any] = {"states": {}, "wall_s": {}}
+
+    def planned(name):
+        if name == until and cut_steps is not None:
+            return cut_steps
+        return None if plan is None else plan["phases"][name]["steps"]
 
     def finish(name, st, rec, steps):
         summary = _membership(eng, st)
@@ -160,6 +170,8 @@ def run(eng, hdr: Dict[str, Any], plan: Optional[Dict[str, Any]] = None,
         eng, st, lambda s, r: int(r["peers_joined"][-1]) == n,
         hdr["join_bound"], None, clock)
     finish("join", st, rec, steps)
+    if until == "join":
+        return {"phases": phases}, extras
 
     def emptied(s, r):
         return int(r["queue_backlog"][-1]) == 0
@@ -167,10 +179,11 @@ def run(eng, hdr: Dict[str, Any], plan: Optional[Dict[str, Any]] = None,
     st = eng.publish_many(st, np.arange(hdr["n_drain"], dtype=np.int32))
     extras["states"]["published"] = st
     st, rec, steps, wall = _advance(
-        eng, st, emptied, hdr["heal_bound"],
-        None if plan is None else plan["phases"]["drain"]["steps"], clock)
+        eng, st, emptied, hdr["heal_bound"], planned("drain"), clock)
     extras["wall_s"]["drain"] = wall
     finish("drain", st, rec, steps)
+    if until == "drain":
+        return {"phases": phases}, extras
 
     def healed(s, r):
         return (int(r["peers_orphaned"][-1]) == 0 and emptied(s, r)
@@ -182,8 +195,7 @@ def run(eng, hdr: Dict[str, Any], plan: Optional[Dict[str, Any]] = None,
         hdr["n_drain"], hdr["n_drain"] + hdr["n_heal"], dtype=np.int32))
     extras["states"]["churned"] = st
     st, rec, steps, wall = _advance(
-        eng, st, healed, hdr["heal_bound"],
-        None if plan is None else plan["phases"]["churn"]["steps"], clock)
+        eng, st, healed, hdr["heal_bound"], planned("churn"), clock)
     extras["wall_s"]["churn"] = wall
     finish("churn", st, rec, steps)
     extras["conditions"] = {
@@ -194,12 +206,16 @@ def run(eng, hdr: Dict[str, Any], plan: Optional[Dict[str, Any]] = None,
     return {"phases": phases}, extras
 
 
-def mismatches(doc: Dict[str, Any], ref: Dict[str, Any]) -> Dict[str, int]:
+def mismatches(doc: Dict[str, Any], ref: Dict[str, Any],
+               phases=None) -> Dict[str, int]:
     """Where two documents differ, counted by channel: ``<phase>.steps``,
     ``<phase>.record.<channel>`` (differing steps), ``<phase>.digest.<leaf>``
-    and the summary counts; an empty dict when they agree."""
+    and the summary counts; an empty dict when they agree.  ``phases``
+    restricts the comparison to those phases (a run cut in depth)."""
     out: Dict[str, int] = {}
     for name, b in ref["phases"].items():
+        if phases is not None and name not in phases:
+            continue
         a = doc["phases"].get(name, {})
         for key in ("steps", "waiting", "stranded"):
             if a.get(key) != b[key]:
@@ -228,14 +244,19 @@ def load_trace(path: str = TRACE_PATH) -> Dict[str, Any]:
 
 
 class PortEngine:
-    """The port's ``TreeCast`` on ``device`` behind the engine interface."""
+    """The port's ``TreeCast`` on ``device`` behind the engine interface;
+    with ``mesh`` (a ``parallel.mesh.PeerMesh``) this rank's block of the
+    sharded ``TreeCast(mesh=)``, whose ``host`` leaves are the whole
+    state (every rank of the group drives its engine in step)."""
 
-    def __init__(self, hdr: Dict[str, Any], device="cuda"):
+    def __init__(self, hdr: Dict[str, Any], device="cuda", mesh=None):
         from ..config import SimParams, TreeOpts
         from .treecast import TreeCast
 
         self.model = TreeCast(SimParams(**hdr["config"]),
-                              TreeOpts(**hdr["opts"]), device=device)
+                              TreeOpts(**hdr["opts"]), device=device,
+                              mesh=mesh)
+        self.mesh = mesh
         self.hdr = hdr
 
     def _dev(self, a: np.ndarray):
@@ -243,45 +264,56 @@ class PortEngine:
 
         return torch.from_numpy(np.array(a)).to(self.model.device)
 
-    def init(self):
-        from ..ops import tree as tree_ops
+    def _rows(self, a: np.ndarray):
+        t = self._dev(a)
+        return t if self.mesh is None else self.mesh.local(t)
 
-        return tree_ops.init_state(self.model.params, self.model.opts,
-                                   root=self.hdr["root"],
-                                   seed=self.hdr["seed"],
-                                   device=self.model.device)
+    def init(self):
+        return self.model.init(root=self.hdr["root"], seed=self.hdr["seed"])
 
     def begin_many(self, st, mask):
         from ..ops import tree as tree_ops
 
-        return tree_ops.begin_subscribe_many(st, self._dev(mask))
+        return tree_ops.begin_subscribe_many(st, self._dev(mask),
+                                             pm=self.mesh)
 
     def publish_many(self, st, ids):
         from ..ops import tree as tree_ops
 
-        return tree_ops.publish_many(st, self._dev(ids))
+        return tree_ops.publish_many(st, self._dev(ids), pm=self.mesh)
 
     def churn(self, st, kill, leave):
-        return st._replace(alive=st.alive & ~self._dev(kill),
-                           leaving=st.leaving | self._dev(leave))
+        return st._replace(alive=st.alive & ~self._rows(kill),
+                           leaving=st.leaving | self._rows(leave))
 
     def rollout(self, st, n):
         return self.model.rollout(st, n, record=True)
 
     def host(self, st, names=None):
-        """Leaves as numpy in the reference's dtypes (the key as uint32)."""
+        """Leaves as numpy in the reference's dtypes (the key as uint32);
+        sharded, the peer-dim leaves all-gathered whole."""
+        from ..ops.tree import TREE_PEER_DIMS
+
         out = {}
         for name in st._fields if names is None else names:
-            a = getattr(st, name).cpu().numpy()
+            v = getattr(st, name)
+            if self.mesh is not None and name in TREE_PEER_DIMS:
+                v = self.mesh.all_gather_rows(v)
+            a = v.cpu().numpy()
             out[name] = a.view(np.uint32) if name == "key" else a
         return out
 
 
-def port_replay(doc: Dict[str, Any], device="cuda", clock=time.perf_counter):
-    """The port's run of ``doc``'s configuration on ``device``, replaying
-    its step counts -> (document, extras)."""
+def port_replay(doc: Dict[str, Any], device="cuda", clock=time.perf_counter,
+                mesh=None, until: Optional[str] = None,
+                cut_steps: Optional[int] = None):
+    """The port's run of ``doc``'s configuration on ``device`` (sharded
+    over ``mesh`` when given), replaying its step counts (up to the phase
+    ``until``, of which ``cut_steps``: see :func:`run`) -> (document,
+    extras)."""
     hdr = {k: doc[k] for k in header(doc["config"]["max_peers"])}
-    eng = PortEngine(hdr, device)
-    body, extras = run(eng, hdr, plan=doc, clock=clock)
+    eng = PortEngine(hdr, device, mesh)
+    body, extras = run(eng, hdr, plan=doc, clock=clock, until=until,
+                       cut_steps=cut_steps)
     extras["engine"] = eng
     return dict(hdr, **body), extras

@@ -14,6 +14,17 @@ once, before the first step.  The flight record (one ``tree_metrics``
 sample a step) stays on the device until the last step and is then read
 to the host once, as the port's ``GossipSub.rollout_events`` reads its
 record.  Nothing inside either loop reads the device.
+
+Sharded (``mesh=``, a ``parallel.mesh.PeerMesh`` over ``max_peers``; the
+JAX package's ``dryrun_multichip`` tree family): one process a rank, each
+holding the block of rows ``[row0, row0 + B)`` (placement is the
+identity: the reference shards the tree by contiguous blocks).  ``init``
+builds the whole state on the host and cuts it (``shard_state`` over
+``TREE_REPLICATED_FIELDS`` / ``TREE_PEER_DIMS``); ``rollout`` steps with
+``ops.tree.step(pm=)`` and reduces its record over the ranks once.
+Every rank of the group makes the same calls, and the run equals the
+unsharded one bit for bit, leaf for leaf.  ``rollout_events`` runs
+unsharded.
 """
 
 from __future__ import annotations
@@ -27,7 +38,8 @@ from ..config import SimParams, TreeOpts
 from ..ops import tree as tree_ops
 from ..ops.schedule import TreeEvents
 from ..ops.tree import TreeState
-from ..utils.metrics import tree_metrics
+from ..parallel.mesh import shard_state
+from ..utils.metrics import reduce_tree_metrics, tree_metrics
 from .gossipsub import record_to_host, resolve_device
 
 
@@ -35,26 +47,56 @@ class TreeCast:
     """Data-parallel dissemination-tree pubsub over ``max_peers`` rows."""
 
     def __init__(self, params: Optional[SimParams] = None,
-                 opts: Optional[TreeOpts] = None, device="cuda"):
+                 opts: Optional[TreeOpts] = None, device="cuda", mesh=None):
         self.params = params or SimParams()
         self.opts = opts or TreeOpts()
         self.device = resolve_device(device)
+        if mesh is not None:
+            if mesh.n != self.params.max_peers:
+                raise ValueError(
+                    f"mesh is over {mesh.n} peers, model has "
+                    f"{self.params.max_peers}")
+            if mesh.device != self.device:
+                raise ValueError(
+                    f"mesh device {mesh.device} is not the model's "
+                    f"{self.device}")
+        self.mesh = mesh
 
     # Value semantics: the model is a pure function of its two frozen param
     # sets (and, in the port, its device).
     def __eq__(self, other):
         return (
             type(other) is type(self)
-            and (self.params, self.opts, str(self.device))
-            == (other.params, other.opts, str(other.device))
+            and self._key() == other._key()
         )
 
     def __hash__(self):
-        return hash((type(self), self.params, self.opts, str(self.device)))
+        return hash((type(self),) + self._key())
 
-    def init(self, root: int = 0) -> TreeState:
-        return tree_ops.init_state(self.params, self.opts, root=root,
-                                   device=self.device)
+    def _key(self):
+        pm = self.mesh
+        return (self.params, self.opts, str(self.device),
+                None if pm is None else (pm.rank, pm.world))
+
+    def init(self, root: int = 0, seed: int = 0) -> TreeState:
+        """A fresh tree holding only ``root`` (sharded: this rank's block
+        of the whole state, built on the host)."""
+        if self.mesh is None:
+            return tree_ops.init_state(self.params, self.opts, root=root,
+                                       seed=seed, device=self.device)
+        whole = tree_ops.init_state(self.params, self.opts, root=root,
+                                    seed=seed, device="cpu")
+        return shard_state(whole, self.mesh,
+                           replicated=tree_ops.TREE_REPLICATED_FIELDS,
+                           peer_dim=tree_ops.TREE_PEER_DIMS)
+
+    def gather_state(self, state: TreeState) -> Dict[str, np.ndarray]:
+        """Every leaf of the whole state as host numpy (sharded: the
+        blocks all-gathered; a collective, so every rank calls it)."""
+        if self.mesh is None:
+            return {name: getattr(state, name).cpu().numpy()
+                    for name in state._fields}
+        return self.mesh.gather_canonical(state, tree_ops.TREE_PEER_DIMS)
 
     @staticmethod
     def forward(state: TreeState) -> TreeState:
@@ -70,6 +112,8 @@ class TreeCast:
                     for name in tree_metrics(state)}
         stacked = {name: torch.stack([r[name] for r in rounds])
                    for name in rounds[0]}
+        if self.mesh is not None:
+            stacked = reduce_tree_metrics(stacked, self.mesh)
         return record_to_host(stacked, self.device)
 
     def rollout(self, state: TreeState, n_steps: int, record: bool = True):
@@ -77,10 +121,12 @@ class TreeCast:
 
         With ``record=True`` each step adds the ``tree_metrics`` sample, and
         the record comes back as [n_steps] host numpy channels, read once
-        after the last step; ``record=False`` returns None for it."""
+        after the last step; ``record=False`` returns None for it.
+        Sharded, each step's sample is the block's, and the record crosses
+        ranks once, at the end (``reduce_tree_metrics``)."""
         rounds = []
         for _ in range(n_steps):
-            state = tree_ops.step(state)
+            state = tree_ops.step(state, pm=self.mesh)
             if record:
                 rounds.append(tree_metrics(state))
         return state, (self._finish(state, rounds) if record else None)
@@ -99,7 +145,10 @@ class TreeCast:
         numpy) -> (final state, flight record | None).
 
         Kills, graceful leaves, join walks and root publishes at step t
-        apply, in that order, before step t's transition."""
+        apply, in that order, before step t's transition.  Unsharded."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "rollout_events runs unsharded (mesh=None)")
         n_steps = int(events.kill.shape[0])
         fires = {
             "kill": events.kill.any(axis=1),
@@ -135,6 +184,9 @@ class TreeCast:
         steps, read back each step), then ``n_msgs`` root publishes."""
         if n_peers > self.params.max_peers:
             raise ValueError("n_peers exceeds SimParams.max_peers")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "build_demo_state runs unsharded (mesh=None)")
         st = self.init(root=0)
         for p in range(1, n_peers):
             st = tree_ops.begin_subscribe(st, p)

@@ -106,6 +106,28 @@ def segment_rank(targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     )
 
 
+def drop_index(shape, rows: torch.Tensor, cols: torch.Tensor, lo: int = 0,
+               span=None) -> torch.Tensor:
+    """Flat indices for the drop-mode scatter ``buf.at[rows, cols].set(v,
+    mode="drop")`` into an [n, w] ``shape``, relative to the window
+    [lo, lo + span) of its flat cells (default the whole table).  A source
+    maps to the pad index ``span`` when its pair lies outside the table
+    (every index here is non-negative, so JAX's negative wraparound never
+    applies) or outside the window, or when a later source writes the same
+    cell: XLA applies a scatter's updates in order, so the last one wins.
+    The kept indices are unique, and which source wins a cell does not
+    depend on the window."""
+    n, w = shape
+    span = n * w if span is None else span
+    keep = (rows >= 0) & (rows < n) & (cols >= 0) & (cols < w)
+    flat = torch.where(keep, rows.long() * w + cols.long() - lo, span)
+    flat = torch.where((flat >= 0) & (flat < span), flat, span)
+    src = torch.arange(flat.numel(), device=flat.device)
+    last = torch.full((span + 1,), -1, dtype=torch.int64, device=flat.device)
+    last.scatter_reduce_(0, flat, src, reduce="amax")
+    return torch.where(last[flat] == src, flat, span)
+
+
 def masked_argmin(values: torch.Tensor, mask: torch.Tensor, axis: int = -1):
     """Index of the minimum among masked entries (ties -> lowest index);
     0 for an all-false mask."""

@@ -8,13 +8,17 @@ runs one process per rank (SPMD), each rank ``r`` of ``R`` holds rows
 replicated leaves whole, and every read across peer rows is an explicit
 exchange through a :class:`PeerMesh`:
 
-- :meth:`PeerMesh.all_gather_rows` -- the whole [N, ...] table;
+- :meth:`PeerMesh.all_gather_rows` -- the whole [N, ...] table
+  (:meth:`all_gather_many`: several narrow tables in one collective);
 - :meth:`PeerMesh.gather` -- ``table[clip(idx)]`` at global row ids, by an
   all-gather or, with ``ring`` set, by the split-gather ring
   (``ops.gossip_packed.ring_gather_rows``);
 - :meth:`PeerMesh.sum` / :meth:`min` / :meth:`max` / :meth:`any` --
   integer all-reduces (a float sum over ranks would add in another order
   than the reference, so floats are refused);
+- :meth:`PeerMesh.scatter_drop` / :meth:`index_add_rows` -- writes at
+  other ranks' rows: the reference's drop-mode scatter, the last source
+  in global order winning, and an integer scatter-add by destination row;
 - :meth:`PeerMesh.gather_canonical` -- a whole state in canonical order,
   for checks.
 
@@ -47,7 +51,9 @@ import torch
 import torch.distributed as dist
 
 from ..ops.gossip_packed import ring_gather_rows
-from ..ops.graphs import decode_index_plane, encode_index_plane, take_rows
+from ..ops.graphs import (
+    decode_index_plane, drop_index, encode_index_plane, take_rows,
+)
 
 PEER_AXIS = "peers"
 
@@ -164,6 +170,67 @@ class PeerMesh:
             dist.all_gather(parts, w, group=self.group)
             out = torch.cat(parts, dim=0)
         return _from_wire(out, x.dtype)
+
+    def all_gather_many(self, *blocks: torch.Tensor):
+        """:meth:`all_gather_rows` of several [B] or [B, c] blocks of bool or
+        integer dtype (at most 32 bits) in one collective: they travel as
+        the int32 columns of one [B, sum c] block -> the whole tables, in
+        their own dtypes and shapes."""
+        cols = [x.reshape(x.shape[0], -1).to(torch.int32) for x in blocks]
+        whole = self.all_gather_rows(torch.cat(cols, dim=1))
+        out, at = [], 0
+        for x, c in zip(blocks, cols):
+            part = whole[:, at:at + c.shape[1]]
+            at += c.shape[1]
+            part = part.reshape((whole.shape[0],) + tuple(x.shape[1:]))
+            out.append(part != 0 if x.dtype == torch.bool
+                       else part.to(x.dtype))
+        return out
+
+    def scatter_drop(self, bufs: Sequence[torch.Tensor], rows: torch.Tensor,
+                     cols: torch.Tensor, vals: Sequence[torch.Tensor]):
+        """The reference's drop-mode scatter ``whole.at[rows, cols].set(v,
+        mode="drop")`` into whole [N, C] tables of which ``bufs`` are this
+        rank's blocks, from every rank's sources: ``rows`` (global row ids),
+        ``cols`` and each of ``vals`` (int32, one a source) are this rank's
+        sources, in its local order.  Pairs outside [0, N) x [0, C) are
+        dropped; among the sources of one cell the last in global order
+        wins, as XLA's scatter applies them.  The lists are all-gathered in
+        rank order, which (blocks being contiguous) followed by the local
+        order is the global source order; every rank applies the rule
+        (``ops.graphs.drop_index``) to the whole list over the cells of
+        its own block, and writes them.  One collective."""
+        c = bufs[0].shape[1]
+        rows, cols = rows.reshape(-1), cols.reshape(-1)
+        src = torch.stack([rows.to(torch.int32), cols.to(torch.int32)]
+                          + [v.reshape(-1).to(torch.int32) for v in vals],
+                          dim=1)
+        whole = self.all_gather_rows(src)
+        pad = self.block * c
+        local = drop_index((self.n, c), whole[:, 0], whole[:, 1],
+                           lo=self.row0 * c, span=pad)
+        out = []
+        for j, buf in enumerate(bufs):
+            ext = torch.cat([buf.reshape(-1), buf.new_empty(1)])
+            ext.index_put_((local,), whole[:, 2 + j].to(buf.dtype))
+            out.append(ext[:-1].reshape(buf.shape))
+        return out
+
+    def index_add_rows(self, idx: torch.Tensor,
+                       vals: torch.Tensor) -> torch.Tensor:
+        """The whole [N] integer scatter-add of every rank's ``vals`` at
+        global rows ``idx`` (rows outside [0, N) dropped): a local
+        ``index_add_`` over N + 1 rows and one integer all-reduce SUM.
+        Integer addition is exact in any order, so this is the unsharded
+        ``index_add_`` bit for bit; :meth:`local` takes the rank's block."""
+        if vals.dtype.is_floating_point:
+            raise TypeError("index_add_rows adds integers only")
+        n = self.n
+        idx = idx.reshape(-1)
+        ok = (idx >= 0) & (idx < n)
+        acc = torch.zeros(n + 1, dtype=vals.dtype, device=idx.device)
+        acc.index_add_(0, torch.where(ok, idx, n).long(), vals.reshape(-1))
+        return self.sum(acc[:n])
 
     def gather(self, table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """``whole_table[clip(idx)]`` for this rank's block ``table``

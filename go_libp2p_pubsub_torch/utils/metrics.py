@@ -23,10 +23,15 @@ from ..ops import bitpack
 from ..ops.histogram import hist_quantile
 
 
+_TREE_MAXIMA = ("max_queue_depth", "tree_depth_proxy")
+
+
 def tree_metrics(st) -> Dict[str, torch.Tensor]:
     """Reductions over a ``TreeState`` (the v0-parity engine): delivery
     totals (``client.go:124-127``), membership (``subtree.go:152``) and the
-    orphan backlog, as int32 device scalars."""
+    orphan backlog, as int32 device scalars.  On a rank's block of a
+    sharded tree they are the block's (:func:`reduce_tree_metrics` makes
+    them the whole network's)."""
     i32 = torch.int32
     alive = st.alive
     joined = st.joined & alive
@@ -42,6 +47,18 @@ def tree_metrics(st) -> Dict[str, torch.Tensor]:
         "tree_depth_proxy": st.subtree_size.max(),
         "step": st.step_num,
     }
+
+
+def reduce_tree_metrics(m: Dict[str, torch.Tensor],
+                        pm) -> Dict[str, torch.Tensor]:
+    """:func:`tree_metrics` samples taken on a rank's block (of any leading
+    shape: a stacked record too) -> the whole network's: the sums in one
+    integer all-reduce SUM, the maxima in one MAX, ``step`` as it is."""
+    sums = [k for k in m if k not in _TREE_MAXIMA and k != "step"]
+    whole = dict(zip(sums, pm.sum(torch.stack([m[k] for k in sums]))))
+    whole.update(zip(_TREE_MAXIMA, pm.max(torch.stack(
+        [m[k] for k in _TREE_MAXIMA]))))
+    return {k: whole.get(k, m[k]) for k in m}
 
 
 def gossip_metrics(st) -> Dict[str, torch.Tensor]:
