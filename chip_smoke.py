@@ -226,7 +226,27 @@ Phases (each one fails the run, exit code != 0, on any error):
               and the canon's two live-only campaigns,
               ``root_kill_failover`` and ``live_partition_heal``, through
               ``scenario.run_live_scenario``, each graded PASS by its
-              spec's SLO.  At most 120 s.
+              spec's SLO.  At most 120 s;
+12. tools   -- the system's tools on the port (``go_libp2p_pubsub_torch.
+              tools``), each through its ``main([...])`` with ``--device
+              cuda``, against what the JAX package's tools wrote
+              (``tools/traces/reference_tools.json``): ``scenario_run
+              --json`` verdicts of three canon campaigns; ``--replay`` of
+              the committed 100,000-peer campaign (EXACT, its red verdict,
+              exit 1); ``--spec tests/golden/fuzz_red_cold_boot.json``
+              (exit 1, failed exactly on ``final_attacker_score``); a
+              ``--save-trace`` / ``--replay`` round trip; a streaming
+              ``--trace-out`` whose span counts ``trace_view`` reads back;
+              a traced live run whose ``trace_view --merge`` summary is
+              the runner's ``merged.json``'s; the fuzzer's first 8 seed-0
+              samples; the co-evolution smoke's audit document; the 11
+              archived co-evolution reds under the standing and the
+              promoted defense; ``mem_audit --json`` at its defaults; the
+              gossipsub audit at 100,000 peers with the card's allocator
+              readings, and a real init at 1,000,000 peers against that
+              audit's extrapolation; ``profile_rollout --phases`` at
+              100,000 peers (the heartbeat's split, the timer's Chrome
+              trace, K1/K2 launched).  At most 120 s.
 
 Depth cut to make room for phase ``sharded`` (each section's seconds on
 an NVIDIA H100 80GB HBM3 at 700 W, before -> after): the hybrid loss grid
@@ -4109,9 +4129,338 @@ def live_phase(dev, card: str):
     return launches
 
 
+# -- phase 12: the tools -----------------------------------------------------
+
+TOOLS_BUDGET_S = 120.0
+TOOLS_REFERENCE = os.path.join(ROOT, "go_libp2p_pubsub_torch", "tools",
+                               "traces", "reference_tools.json")
+TOOLS_VERDICT_CAMPAIGNS = ("steady_state", "flash_crowd",
+                           "fuzz_regression_cold_boot")
+TOOLS_FUZZ_BUDGET = 8
+TOOLS_COEVOLVE_ARGS = [
+    "--budget", "2", "--seed", "0", "--attack-budget", "1",
+    "--defense-probes", "2", "--fresh-budget", "1", "--shallow-gate",
+    "--no-shrink", "--no-realism", "--quick-gate", "--gate-battery", "1",
+    "--no-quick-battery", "--dry-run"]
+TOOLS_LIVE_CAMPAIGN = "steady_state"    # the smallest live-supported canon
+TOOLS_MEM_N = 100_000
+TOOLS_MEM_TARGET = 1_000_000            # mem_audit's own extrapolation target
+TOOLS_PHASE_NAMES = (
+    "propagate", "heartbeat", "hb_scores", "hb_mesh", "hb_px",
+    "hb_prologue_unfused", "hb_prologue_fused", "hb_gossip", "hb_fanout",
+    "round_amortized")
+
+
+def _tool(main, argv):
+    """(exit code, stdout, stderr) of a port tool's ``main(argv)``."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = main(argv)
+        except SystemExit as e:
+            rc = e.code
+    return rc, out.getvalue(), err.getvalue()
+
+
+def _tool_json(main, argv, want_rc: int, what: str):
+    rc, out, err = _tool(main, argv)
+    if rc != want_rc:
+        fail(f"{what}: exit code {rc}, not {want_rc}: {err[-800:]}")
+    return json.loads(out)
+
+
+def tools_scenario_run(dev, ref: dict, tmp: str) -> dict:
+    """``scenario_run`` on the card over the sim, streaming and live
+    planes, and ``trace_view`` on what it wrote."""
+    from go_libp2p_pubsub_torch.scenario.campaign import TRACE_PATH, load_trace
+    from go_libp2p_pubsub_torch.tools import scenario_run, trace_view
+
+    card = ["--device", str(dev)]
+    out = {}
+    got = _tool_json(scenario_run.main,
+                     ["--json", *TOOLS_VERDICT_CAMPAIGNS, *card], 0,
+                     "scenario_run --json")
+    for entry in got:
+        entry.pop("seconds")
+    if got != ref["verdicts"]:
+        fail("scenario_run --json: the verdicts differ from the JAX tool's")
+    out["verdicts"] = {e["scenario"]: e["passed"] for e in got}
+
+    # The full-width run: the committed 100,000-peer campaign, 48 rounds.
+    # The tool exits 0 only on an exact replay of a passing verdict; this
+    # trace's verdict is red in the reference, so EXACT exits 1.
+    verdict = load_trace()["verdict"]
+    want_rc = 0 if verdict["passed"] else 1
+    t0 = time.perf_counter()
+    (rep,) = _tool_json(scenario_run.main,
+                        ["--replay", TRACE_PATH, "--json", *card], want_rc,
+                        "scenario_run --replay (100k)")
+    out["replay_100k_s"] = time.perf_counter() - t0
+    if not rep["replay_exact"] or rep["mismatched_channels"]:
+        fail(f"scenario_run --replay (100k): {rep['mismatched_channels']}")
+    if rep["verdict"] != verdict:
+        fail("scenario_run --replay (100k): the verdict differs")
+    out["replay_100k"] = dict(exact=rep["replay_exact"], exit_code=want_rc,
+                              passed=verdict["passed"])
+
+    red, green = _tool_json(scenario_run.main, [
+        "--json", "--spec",
+        os.path.join(ROOT, "tests", "golden", "fuzz_red_cold_boot.json"),
+        "steady_state", *card], 1, "scenario_run --spec")
+    failed = {c["name"] for c in red["criteria"] if not c["passed"]}
+    if failed != {"final_attacker_score"} or not green["passed"]:
+        fail(f"scenario_run --spec fuzz_red_cold_boot: failed {failed}")
+    out["cold_boot_failed"] = sorted(failed)
+
+    path = os.path.join(tmp, "steady.trace.json")
+    for argv in (["steady_state", "--save-trace", path, *card],
+                 ["--replay", path, *card]):
+        rc, text, err = _tool(scenario_run.main, argv)
+        if rc != 0:
+            fail(f"scenario_run {argv[0]}: exit code {rc}: {err[-800:]}")
+    if text != f"PASS  replay {path}: EXACT\n":
+        fail(f"the saved trace did not replay exactly: {text!r}")
+
+    art = os.path.join(tmp, "stream.json")
+    rc, _, err = _tool(scenario_run.main, [
+        "--plane", "streaming", "streaming_steady", "--trace-out", art,
+        *card])
+    if rc != 0:
+        fail(f"scenario_run --plane streaming: exit code {rc}: {err[-800:]}")
+    view = _tool_json(trace_view.main, [art, "--json"], 0, "trace_view")
+    with open(art) as f:
+        summary = json.load(f)["summary"]
+    counts = ("spans", "open", "closed", "dropped_spans", "duplicate_closes")
+    if any(view[k] != summary[k] for k in counts):
+        fail("trace_view: the span counts differ from the artifact's")
+    out["streaming_spans"] = {k: view[k] for k in counts}
+
+    live = os.path.join(tmp, "live.json")
+    t0 = time.perf_counter()
+    rc, _, err = _tool(scenario_run.main, [
+        "--plane", "live", TOOLS_LIVE_CAMPAIGN, "--trace-out", live])
+    out["live_s"] = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"scenario_run --plane live: exit code {rc}: {err[-800:]}")
+    spans = os.path.join(tmp, "live.spans")
+    merged = _tool_json(trace_view.main, ["--merge", spans, "--json"], 0,
+                        "trace_view --merge")
+    runner = _tool_json(trace_view.main,
+                        [os.path.join(spans, "merged.json"), "--json"], 0,
+                        "trace_view merged.json")
+    # The runner names the campaign and adds its verdict; a re-merge of
+    # the host files knows neither.
+    if (merged.pop("scenario"), merged.pop("passed")) != (None, None) or \
+            runner.pop("scenario") != TOOLS_LIVE_CAMPAIGN:
+        fail("trace_view --merge: unexpected scenario or verdict")
+    runner.pop("passed")
+    if merged != runner:
+        fail("trace_view --merge differs from the runner's merged.json")
+    out["live_merge"] = dict(hosts=len(merged["hosts"]),
+                             messages=merged["messages"],
+                             deliveries=merged["deliveries"])
+    return out
+
+
+def tools_search(dev, ref: dict, tmp: str) -> dict:
+    """The fuzzer's first samples, the co-evolution smoke and the archived
+    reds under the standing and the promoted defense, on the card."""
+    import glob
+
+    from go_libp2p_pubsub_torch import scenario
+    from go_libp2p_pubsub_torch.tools import coevolve, scenario_fuzz
+
+    card = ["--device", str(dev)]
+    out = {}
+    t0 = time.perf_counter()
+    got = _tool_json(scenario_fuzz.main, [
+        "--budget", str(TOOLS_FUZZ_BUDGET), "--seed", "0", "--json", *card],
+        0, "scenario_fuzz")
+    out["fuzz_s"] = time.perf_counter() - t0
+    if got != ref["fuzz"]:
+        fail("scenario_fuzz: the trajectory differs from the JAX tool's")
+    out["fuzz"] = {k: got["summary"][k] for k in ("red", "green", "invalid")}
+
+    archive = os.path.join(tmp, "golden")
+    audit = os.path.join(tmp, "audit.json")
+    t0 = time.perf_counter()
+    rc, _, err = _tool(coevolve.main, [
+        *TOOLS_COEVOLVE_ARGS, "--archive-dir", archive, "--audit", audit,
+        "--json", *card])
+    out["coevolve_s"] = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"coevolve: exit code {rc}: {err[-800:]}")
+    with open(audit) as f:
+        doc = json.loads(f.read().replace(archive + os.sep, ""))
+    if doc != ref["coevolve_audit"]:
+        fail("coevolve: the audit differs from the JAX tool's")
+    out["coevolve"] = dict(reds_found=doc["reds_found"],
+                           invariant_rejections=doc["invariant_rejections"])
+
+    # Every archived co-evolution red under the standing and the promoted
+    # defense, red or green as the JAX package grades it (there i0008 and
+    # i0012 flip; the pin i0009 stays red under the promoted defense).
+    t0 = time.perf_counter()
+    reds = sorted(glob.glob(os.path.join(ROOT, "tests", "golden",
+                                         "coevolve_red_s0_*.json")))
+    if sorted(map(os.path.basename, reds)) != sorted(ref["archive"]):
+        fail("the archived coevolve reds differ from the reference file's")
+    grades = {}
+    for path in reds:
+        with open(path) as f:
+            spec = scenario.ScenarioSpec.from_json(f.read())
+        grades[os.path.basename(path)] = {
+            side: coevolve.red_under(spec, defense, dev)
+            for side, defense in (("standing", scenario.STANDING_DEFENSE),
+                                  ("promoted", scenario.PROMOTED_DEFENSE))}
+    if grades != ref["archive"]:
+        fail("the archived reds' grades differ from the JAX package's")
+    out["archive_s"] = time.perf_counter() - t0
+    out["archive"] = dict(
+        red_under_standing=sum(g["standing"] for g in grades.values()),
+        red_under_promoted=sum(g["promoted"] for g in grades.values()),
+        flipped=sorted(n for n, g in grades.items()
+                       if g["standing"] and not g["promoted"]))
+    return out
+
+
+def tools_mem_audit(dev, ref: dict, card: str) -> dict:
+    """``mem_audit`` on the card: the defaults against the JAX tool's
+    document; the gossipsub narrow arm at 100,000 peers with the card's
+    own allocator readings; a real init at the million-peer target against
+    the 100,000-peer audit's extrapolation."""
+    import torch
+
+    from go_libp2p_pubsub_torch import bridge
+    from go_libp2p_pubsub_torch.tools import mem_audit
+
+    out = {}
+    got = _tool_json(mem_audit.main, ["--json", "--device", str(dev)], 0,
+                     "mem_audit")
+    if got != ref["mem_audit"]:
+        fail("mem_audit --json: the document differs from the JAX tool's")
+    out["defaults_equal"] = True
+
+    target = TOOLS_MEM_TARGET
+    t0 = time.perf_counter()
+    doc = mem_audit.run_audit(["gossipsub"], TOOLS_MEM_N, 32, 16, 64,
+                              [TOOLS_MEM_TARGET], True, dev)
+    out["audit_100k_s"] = time.perf_counter() - t0
+    gs = doc["models"]["gossipsub"]
+    narrow = gs["narrow"]
+    out["n100k"] = dict(total_bytes=narrow["total_bytes"],
+                        bytes_per_peer=narrow["bytes_per_peer"],
+                        **gs["rollout_memory"])
+    print(f"mem_audit @ {TOOLS_MEM_N} peers (narrow): audit "
+          f"{narrow['total_bytes']} B; on the card init allocated "
+          f"{gs['rollout_memory']['init_allocated_rise_bytes']} B, rollout "
+          f"peak above its start "
+          f"{gs['rollout_memory']['rollout_peak_rise_bytes']} B ({card})",
+          flush=True)
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    model = mem_audit.build_model("gossipsub", target, 32, 16, 64, None, dev)
+    t0 = time.perf_counter()
+    st = model.init(0)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    rise = torch.cuda.memory_allocated(dev) - before
+    audited = mem_audit.audit_state(bridge.state_spec(st), target)
+    del st, model
+    torch.cuda.empty_cache()
+    extrapolated = narrow["extrapolated"][str(target)]["total_bytes"]
+    out["target"] = dict(
+        n_peers=target, init_s=init_s, audit_total_bytes=audited[
+            "total_bytes"], extrapolated_total_bytes=extrapolated,
+        audit_minus_extrapolation=audited["total_bytes"] - extrapolated,
+        card_allocated_rise_bytes=rise,
+        card_minus_audit=rise - audited["total_bytes"])
+    print(f"mem_audit @ {target} peers: audit {audited['total_bytes']} B, "
+          f"extrapolated from {TOOLS_MEM_N} {extrapolated} B (difference "
+          f"{audited['total_bytes'] - extrapolated} B), card allocated "
+          f"{rise} B; init {init_s:.1f} s ({card})", flush=True)
+    return out
+
+
+def tools_phases(dev, card: str, tmp: str) -> dict:
+    """``profile_rollout --phases`` at the headline geometry (100,000
+    peers): the heartbeat's split, the timer's Chrome trace, and the K1/K2
+    launches of the run."""
+    from go_libp2p_pubsub_torch import profile_rollout
+    from go_libp2p_pubsub_torch.ops import cuda_gossip
+
+    trace = os.path.join(tmp, "phases.trace.json")
+    k1, k2 = cuda_gossip.propagate.launches, cuda_gossip.exchange_select.launches
+    rc, text, err = _tool(profile_rollout.main, [
+        "--phases", "--peers", str(HEADLINE["n_peers"]), "--device",
+        str(dev), "--trace-out", trace])
+    if rc is not None:
+        fail(f"profile_rollout --phases: exit code {rc}: {err[-800:]}")
+    launches = {"gossip_propagate": cuda_gossip.propagate.launches - k1,
+                "gossip_exchange": cuda_gossip.exchange_select.launches - k2}
+    lines = text.splitlines()
+    ms = {line.split()[0]: float(line.split()[1]) for line in lines[2:]}
+    if tuple(ms) != TOOLS_PHASE_NAMES:
+        fail(f"profile_rollout --phases printed {list(ms)}")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    durs = {}
+    for e in events:
+        durs.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    if set(durs) != set(TOOLS_PHASE_NAMES[:-1]) | {"round_cycle"}:
+        fail(f"the phases' Chrome trace holds {sorted(durs)}")
+    if not launches["gossip_propagate"] or not launches["gossip_exchange"]:
+        fail(f"profile_rollout --phases launched {launches}")
+    print(f"tools phases @ {HEADLINE['n_peers']} peers ({card}): "
+          + ", ".join(f"{k} {v} ms" for k, v in ms.items()), flush=True)
+    # The trace's samples, unrounded (the printed means are rounded to
+    # 0.01 ms, as the reference prints them).
+    return dict(n_peers=HEADLINE["n_peers"], ms=ms,
+                samples_ms=durs, init_line=lines[1],
+                trace_events=len(events), launches=launches)
+
+
+def tools_phase(dev, card: str):
+    """Phase 12.  Returns the kernels' launches over the whole phase."""
+    import tempfile
+
+    from go_libp2p_pubsub_torch.ops import cuda_ed25519, cuda_gossip
+
+    t_phase = time.perf_counter()
+    with open(TOOLS_REFERENCE) as f:
+        ref = json.load(f)
+    cuda_gossip.reset_launches()
+    cuda_ed25519.reset_launches()
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix=".tools_") as tmp:
+        for name, run in (
+                ("scenario_run", lambda: tools_scenario_run(dev, ref, tmp)),
+                ("search", lambda: tools_search(dev, ref, tmp)),
+                ("mem_audit", lambda: tools_mem_audit(dev, ref, card)),
+                ("phases", lambda: tools_phases(dev, card, tmp))):
+            t0 = time.perf_counter()
+            out[name] = run()
+            out[name]["seconds"] = time.perf_counter() - t0
+            print(f"tools {name}: {out[name]['seconds']:.1f} s", flush=True)
+    launches = {"gossip_propagate": cuda_gossip.propagate.launches,
+                "gossip_exchange": cuda_gossip.exchange_select.launches,
+                "ed25519_verify": cuda_ed25519.verify.launches}
+    seconds = time.perf_counter() - t_phase
+    emit(dict(phase="tools", seconds=seconds, card=card, launches=launches,
+              budget_s=TOOLS_BUDGET_S, **out))
+    if seconds > TOOLS_BUDGET_S:
+        fail(f"phase tools took {seconds:.1f} s, over {TOOLS_BUDGET_S}")
+    return launches
+
+
 PHASES = {"main": main_path, "scenario": scenario_phase,
           "serve": serve_phase, "tree": tree_phase, "coded": coded_phase,
-          "sharded": sharded_phase, "live": live_phase}
+          "sharded": sharded_phase, "live": live_phase, "tools": tools_phase}
 
 
 def main() -> None:
@@ -4173,6 +4522,7 @@ def main() -> None:
     coded_launches = coded_phase(dev, card)
     sharded_launches = sharded_phase(dev, card)
     live_launches = live_phase(dev, card)
+    tools_launches = tools_phase(dev, card)
     for r in records:
         r["launches"] = launches[r["name"]]
         r["launches_scenario"] = scenario_launches[r["name"]]
@@ -4184,6 +4534,7 @@ def main() -> None:
         r["launches_sharded_multitopic"] = sharded_launches[
             "multitopic"][r["name"]]
         r["launches_live"] = live_launches[r["name"]]
+        r["launches_tools"] = tools_launches[r["name"]]
         emit(dict(phase="kernel", **r))
     emit({"kernels": records})
     print(card, flush=True)

@@ -150,6 +150,12 @@ def state_to_numpy(st: GossipState) -> GossipState:
     return _numpy_of(st)
 
 
+def state_spec(st: GossipState) -> GossipState:
+    """:func:`state_to_numpy`'s shapes and dtypes without reading the
+    device: each leaf an uninitialised array."""
+    return _numpy_of(st, _spec)
+
+
 def tree_state_to_numpy(st: TreeState) -> TreeState:
     """The port's ``TreeState`` -> numpy leaves in the reference's dtypes
     (the uint32 key; ``root``, ``width``, ``max_width`` and ``step_num`` as
@@ -179,6 +185,12 @@ def rlnc_state_to_numpy(st: RLNCState) -> RLNCState:
     """The port's ``RLNCState`` -> numpy leaves in the reference's dtypes
     (the uint32 key, ``step`` as int32)."""
     return _numpy_of(st)
+
+
+def rlnc_state_spec(st: RLNCState) -> RLNCState:
+    """:func:`rlnc_state_to_numpy`'s shapes and dtypes without reading the
+    device."""
+    return _numpy_of(st, _spec)
 
 
 def _hybrid_numpy(st: HybridState, leaf_fn) -> HybridState:

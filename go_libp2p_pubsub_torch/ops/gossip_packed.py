@@ -318,11 +318,13 @@ def gossip_exchange_packed(
     serve_ok: torch.Tensor,      # bool[N, K]
     max_iwant_length: int,
     uid=None,
+    select=exchange_select,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused IHAVE advertise + IWANT select -> (pend int32[N, W], broken
     f32[N, K]), bit-exact with ``iwant_select_packed(ihave_advertise_packed
-    (...))`` under the same keys.  The model runs the same three steps
-    with kernel K2 in place of :func:`exchange_select`."""
+    (...))`` under the same keys.  ``select`` is :func:`exchange_select`
+    or kernel K2's wrapper (``cuda_gossip.exchange_select``), which the
+    model runs in its place."""
     n, k = nbrs.shape
     if min(p.d_lazy, k) <= 0:
         return (
@@ -333,7 +335,7 @@ def gossip_exchange_packed(
         key_adv, key_iwant, have_w, mesh, nbrs, rev, edge_live, alive,
         scores, gossip_w, p, gossip_threshold, serve_ok, uid,
     )
-    pend, broken_p = exchange_select(
+    pend, broken_p = select(
         x.jidx_p, x.adv_ok_p, x.accept_p, x.serve_p, x.rows, have_dedup_w,
         alive, p.max_ihave_length, max_iwant_length,
     )

@@ -3,6 +3,7 @@
     python -m go_libp2p_pubsub_torch.profile_rollout [--peers 100000]
     python -m go_libp2p_pubsub_torch.profile_rollout --campaign
     python -m go_libp2p_pubsub_torch.profile_rollout --serve
+    python -m go_libp2p_pubsub_torch.profile_rollout --phases [--device cpu]
 
 Builds the headline closed loop's model (GossipSub, 32 slots, degree 16,
 128-message window, seed 0, 128 publishes of which 4 invalid), runs one
@@ -44,6 +45,19 @@ chunk's last round (``flight_record_round``), the publishes
 (``publish``) and the completion digest (``stream_digest``).
 
 Prints one JSON object.  Needs a CUDA card.
+
+With ``--phases`` it prints instead the per-phase times of one round at
+``--peers`` (the headline geometry, 32 publishes, 4 rounds in), as the
+JAX package's ``bench.py`` ``phase_breakdown`` splits it: a whole
+heartbeat cycle (``round_cycle``, divided by the heartbeat period into
+``round_amortized``), ``propagate`` (K1) and ``heartbeat``, and the
+heartbeat's parts re-run on the state it sees -- ``hb_scores``,
+``hb_mesh``, ``hb_px``, the scores/mesh/PX prologue unfused and fused,
+``hb_gossip`` (the IHAVE/IWANT exchange, K2) and ``hb_fanout``.  Each is
+the mean of ``--reps`` runs after a warm one, timed through
+``utils.trace.StepTimer`` (host clock, ending in a synchronise of the
+card); ``--trace-out`` writes the timer's Chrome trace.  It runs on
+``--device`` (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -55,11 +69,12 @@ import json
 import time
 import warnings
 from collections import Counter
+from typing import Optional
 
 import numpy as np
 import torch
 
-from .models.gossipsub import GossipSub
+from .models.gossipsub import GossipSub, resolve_device
 from .ops import cuda_gossip
 from .ops import rng as rng_ops
 
@@ -323,14 +338,195 @@ def profile(n_peers: int, campaign: bool = False,
     }
 
 
-def main() -> None:
+def phase_breakdown(gs: GossipSub, st, reps: int, timer=None) -> dict:
+    """Per-phase times (ms) of one round: ``bench.py``'s
+    ``phase_breakdown`` on the port.  Sub-phases re-run the heartbeat's
+    own functions on the same state the heartbeat sees; the exchange runs
+    as the model runs it, its select on K2.
+
+    Phases record through a :class:`~.utils.trace.StepTimer` (pass one to
+    share the timeline with the caller's own phases)."""
+    from .ops import scoring as scoring_ops
+    from .ops.gossip import heartbeat_mesh
+    from .ops.gossip_packed import gossip_exchange_packed
+    from .ops.graphs import safe_gather
+    from .ops.px import px_rewire
+    from .utils.trace import StepTimer, block_until_ready
+
+    p, sp = gs.params, gs.score_params
+    # The sub-phases take the WIDE view of the index planes (int32, -1
+    # sentinel), the one the heartbeat computes on; the rollout below takes
+    # the STORAGE view.
+    st_storage = st
+    st = gs._widen_indices(st)
+    timer = timer if timer is not None else StepTimer()
+    phase_names = []
+
+    def timeit(name, fn, *args):
+        block_until_ready(fn(*args))  # warm
+        for _ in range(reps):
+            with timer(name):
+                timer.fence(fn(*args))
+        phase_names.append(name)
+
+    # A round's heartbeat runs only every heartbeat_steps rounds, so the
+    # per-round figure times a whole heartbeat cycle and divides.
+    hb_steps = gs.heartbeat_steps
+
+    def full_cycle(s):
+        return gs.rollout(s, hb_steps, record=False)[0]
+
+    block_until_ready(full_cycle(st_storage))
+    for _ in range(max(1, reps // 2)):
+        with timer("round_cycle"):
+            timer.fence(full_cycle(st_storage))
+    timeit("propagate", gs._propagate, st)
+    timeit("heartbeat", gs._heartbeat, st)
+
+    def scores_fn(counters, gcounters, mesh, nbrs, nbr_valid):
+        c = scoring_ops.tick_mesh_clocks(counters, mesh, p.heartbeat_interval_s)
+        c = scoring_ops.decay_topic_counters(c, sp)
+        g = scoring_ops.decay_global_counters(gcounters, sp)
+        return scoring_ops.neighbor_scores(c, g, nbrs, nbr_valid, sp)
+
+    timeit("hb_scores", scores_fn,
+           st.counters, st.gcounters, st.mesh, st.nbrs, st.nbr_valid)
+    scores = scores_fn(
+        st.counters, st.gcounters, st.mesh, st.nbrs, st.nbr_valid
+    )
+    part = st.alive & st.subscribed
+    edge_ok = st.edge_live & st.nbr_sub
+    key = rng_ops.PRNGKey(1, device=gs.device)
+
+    def mesh_fn(k_, mesh, sc, nbrs, rev, eo, al, bo, ob):
+        return heartbeat_mesh(
+            k_, mesh, sc, nbrs, rev, eo, al, p, bo, ob, False,
+            og_threshold=sp.opportunistic_graft_threshold)
+
+    timeit("hb_mesh", mesh_fn, key, st.mesh, scores, st.nbrs, st.rev,
+           edge_ok, part, st.backoff, st.outbound)
+    nm, gr, pr, bo, bv = mesh_fn(
+        key, st.mesh, scores, st.nbrs, st.rev, edge_ok, part,
+        st.backoff, st.outbound)
+
+    def px_fn(k_, nbrs, rev, nv, ob, bo_, nm_, pr_, sc, al):
+        return px_rewire(k_, nbrs, rev, nv, ob, bo_, nm_, pr_, sc, al,
+                         sp.accept_px_threshold)
+
+    timeit("hb_px", px_fn, key, st.nbrs, st.rev, st.nbr_valid, st.outbound,
+           bo, nm, pr, scores, st.alive)
+
+    # The three prologue functions above each re-gather the same [N, K]
+    # index planes; the fused path computes (jidx, ridx) once and threads
+    # them through (plus the px offer bit out of heartbeat_mesh's gather):
+    # the whole scores -> mesh -> px prologue, both ways.
+    def _prologue(fused):
+        def run(k_, counters, gcounters, mesh, nbrs, rev, nbr_valid, eo, al,
+                backoff, outbound, alive):
+            edge_idx = (
+                (torch.clamp(nbrs, 0, gs.n - 1), torch.clamp(rev, 0, gs.k - 1))
+                if fused else None
+            )
+            c = scoring_ops.tick_mesh_clocks(counters, mesh,
+                                             p.heartbeat_interval_s)
+            c = scoring_ops.decay_topic_counters(c, sp)
+            g = scoring_ops.decay_global_counters(gcounters, sp)
+            sc = scoring_ops.neighbor_scores(
+                c, g, nbrs, nbr_valid, sp,
+                jidx=None if edge_idx is None else edge_idx[0],
+            )
+            hb = heartbeat_mesh(
+                k_, mesh, sc, nbrs, rev, eo, al, p, backoff, outbound,
+                False, og_threshold=sp.opportunistic_graft_threshold,
+                edge_idx=edge_idx, with_px_offer=fused,
+            )
+            nm_, _gr, pr_, bo_, _bv = hb[:5]
+            return px_rewire(
+                k_, nbrs, rev, nbr_valid, outbound, bo_, nm_, pr_, sc,
+                alive, sp.accept_px_threshold,
+                edge_idx=edge_idx, offer_ok=hb[5] if fused else None,
+            )
+        return run
+
+    pro_args = (key, st.counters, st.gcounters, st.mesh, st.nbrs, st.rev,
+                st.nbr_valid, edge_ok, part, st.backoff, st.outbound,
+                st.alive)
+    timeit("hb_prologue_unfused", _prologue(False), *pro_args)
+    timeit("hb_prologue_fused", _prologue(True), *pro_args)
+
+    # Masks and fanout logic come from the model's own helpers, so the
+    # profiled functions cannot drift from the shipped heartbeat.
+    have_scrubbed, gossip_w = gs.gossip_window_masks(st)
+
+    def ihave_iwant(k_, have_adv, have_dedup, nm_, nbrs, rev, eo, al, sc,
+                    gw, mute):
+        serve_ok = ~safe_gather(mute, nbrs, True)
+        return gossip_exchange_packed(
+            k_, k_, have_adv, have_dedup, nm_, nbrs, rev, eo, al, sc, gw,
+            p, sp.gossip_threshold, serve_ok, p.max_iwant_length,
+            select=cuda_gossip.exchange_select)
+
+    timeit("hb_gossip", ihave_iwant, key, st.have_w, have_scrubbed, nm,
+           st.nbrs, st.rev, edge_ok, part, scores, gossip_w, st.gossip_mute)
+
+    timeit("hb_fanout", gs.fanout_maintenance, key, st.fanout,
+           st.fanout_age, st.subscribed, st.alive, edge_ok, scores)
+
+    stats = timer.stats()
+    out = {n: round(stats[n]["mean_ms"], 2) for n in phase_names}
+    out["round_amortized"] = round(stats["round_cycle"]["mean_ms"] / hb_steps, 2)
+    return out
+
+
+def phases(n_peers: int, device, trace_out: Optional[str] = None) -> dict:
+    """``--phases``: the JAX package's ``tools/profile_rollout.py`` -- the
+    headline geometry, 32 valid publishes from seeded random peers, 4
+    rounds in, then :func:`phase_breakdown`; prints the per-phase times
+    (ms) and returns them."""
+    from .utils.trace import StepTimer, block_until_ready
+
+    dev = resolve_device(device)
+    name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu")
+    print(f"device: {name}  n={n_peers}  "
+          f"kernel={'cuda' if dev.type == 'cuda' else 'plain'}")
+    gs = GossipSub(n_peers=n_peers, n_slots=32, conn_degree=16,
+                   msg_window=128, device=dev)
+    t0 = time.perf_counter()
+    st = block_until_ready(gs.init(seed=0))
+    print(f"init: {time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(0)
+    for slot in range(32):
+        st = gs.publish(st, int(rng.integers(n_peers)), slot, True)
+    st = gs.rollout(st, 4, record=False)[0]
+    timer = StepTimer()
+    out = phase_breakdown(gs, st, 8, timer)
+    for phase, ms in out.items():
+        print(f"{phase:24s} {ms:9.2f} ms")
+    if trace_out is not None:
+        with open(trace_out, "w") as f:
+            f.write(timer.export_chrome_trace())
+    return out
+
+
+def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--peers", type=int, default=100_000)
     ap.add_argument("--campaign", action="store_true",
                     help="profile the composite campaign's rollout_events")
     ap.add_argument("--serve", action="store_true",
                     help="profile one loaded streaming-engine chunk")
-    args = ap.parse_args()
+    ap.add_argument("--phases", action="store_true",
+                    help="time the round's phases and the heartbeat's parts "
+                    "(bench.py's phase_breakdown)")
+    ap.add_argument("--device", default="cuda",
+                    help="where --phases runs (default cuda)")
+    ap.add_argument("--trace-out", metavar="PATH",
+                    help="with --phases, write the timer's Chrome trace")
+    args = ap.parse_args(argv)
+    if args.phases:
+        phases(args.peers, args.device, args.trace_out)
+        return
     print(json.dumps(profile(args.peers, args.campaign, args.serve)))
 
 

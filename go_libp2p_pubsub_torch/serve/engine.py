@@ -47,14 +47,12 @@ way round.
 ``obs.blackbox.BlackBox``) are optional hooks; the engine is exact with
 both None.
 ``profile_every``/``profile_dir`` capture a ``torch.profiler`` trace of
-every Nth chunk into ``profile_dir``.
+every Nth chunk into ``profile_dir`` (``utils.trace.profiler_trace``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import os
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -67,6 +65,7 @@ from ..models.multitopic import EVENT_ROWS, fires
 from ..obs.spans import content_hash  # re-exported
 from ..ops import schedule as sched
 from ..utils import checkpoint as ckpt
+from ..utils.trace import profiler_trace
 from .ingest import IngestItem, IngestRing
 from .tuning import ChunkGeometry, validate_ladder
 
@@ -623,27 +622,21 @@ class StreamingEngine:
                 self.tracer.close(stale.chash, status="evicted")
         return slot
 
-    def _profiler(self):
-        """A ``torch.profiler`` capture of this chunk into ``profile_dir``
-        on every ``profile_every``-th chunk (never on warmup chunks)."""
-        if not (self.profile_every > 0 and not self._in_warmup
-                and (self.chunks_run + 1) % self.profile_every == 0):
-            return None
-        acts = [torch.profiler.ProfilerActivity.CPU]
-        if self.model.device.type == "cuda":
-            acts.append(torch.profiler.ProfilerActivity.CUDA)
-        return torch.profiler.profile(activities=acts)
-
     def _dispatch(self, events: sched.MultiTopicEvents, n_items: int = 0):
         t_start = self._clock()
-        prof = self._profiler()
+        # A profiler capture of every profile_every-th chunk (never on
+        # warmup chunks) -- the on-chip campaign's free profiler hook.
+        do_profile = (
+            self.profile_every > 0
+            and not self._in_warmup
+            and (self.chunks_run + 1) % self.profile_every == 0
+        )
         program = _program(self.model, self.chunk_steps, self.pub_width)
-        with prof if prof is not None else contextlib.nullcontext():
+        with profiler_trace(self.profile_dir if do_profile else None,
+                            self.model.device,
+                            f"chunk_{self.chunks_run:06d}.json"):
             self.state, tail = program(self.state, events)
-        if prof is not None:
-            os.makedirs(self.profile_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(
-                self.profile_dir, f"chunk_{self.chunks_run:06d}.json"))
+        if do_profile:
             self.profile_captures += 1
         # Exact device rounds (traced runs only): a separate digest over
         # the first-receipt table, queued before the blocking digest read.

@@ -238,6 +238,34 @@ def test_profile_every_writes_a_chunk_trace(model, tmp_path):
         "chunk_000001.json", "chunk_000003.json"]
 
 
+def test_profile_every_captures_through_profiler_trace(model, tmp_path,
+                                                       monkeypatch):
+    """The engine's capture is ``utils.trace.profiler_trace``: one call a
+    chunk, the profiled chunks naming the directory and their file."""
+    from go_libp2p_pubsub_torch.serve import engine as engine_mod
+
+    calls = []
+    real = engine_mod.profiler_trace
+
+    def spy(log_dir, device="cpu", file_name="trace.json"):
+        calls.append((log_dir, file_name))
+        return real(log_dir, device, file_name)
+
+    monkeypatch.setattr(engine_mod, "profiler_trace", spy)
+    eng, ring = _pair(model, profile_every=2, profile_dir=str(tmp_path))
+    eng.warmup()
+    calls.clear()
+    for c in range(4):
+        ring.push(topic=c % 2, payload=b"p%d" % c, publisher=c)
+        eng.run_chunk()
+    assert [c for c in calls if c[0] is not None] == [
+        (str(tmp_path), "chunk_000001.json"),
+        (str(tmp_path), "chunk_000003.json")]
+    assert len(calls) == 4 and eng.profile_captures == 2
+    assert sorted(os.listdir(tmp_path)) == [
+        "chunk_000001.json", "chunk_000003.json"]
+
+
 def test_jax_written_snapshot_continues_in_the_port(model, jmodel,
                                                     tmp_path):
     """A snapshot the JAX engine wrote mid-flight restores into a fresh,
