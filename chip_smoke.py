@@ -20,6 +20,23 @@ Phases (each one fails the run, exit code != 0, on any error):
               how many blocks of each instantiation an SM holds; times
               both at the main path's shapes (CUDA events), warm and with
               the L2 flushed, beside the least time the card could take;
+3b. oracle -- K1 and K2 against the unpacked gossip plane
+              (``ops/gossip.py``: the boolean [N, K, M] ``propagate``,
+              ``ihave_advertise`` and ``iwant_select``), an oracle
+              independent of the packed form the plain versions share:
+              at the closed loop's state (100,000 peers, 32 slots, degree
+              16, 128 messages, the window's 128 publishes with their
+              native verdicts, 4 rounds in), K1 on the round's inputs as
+              ``GossipSub._propagate`` builds them, IDONTWANT off and on
+              (``have``, ``fresh``, ``first_step`` stamped from ``new_w``,
+              the three counters), and the heartbeat's exchange with its
+              select on K2 on ``profile_rollout``'s ``hb_gossip`` inputs
+              (``pend``, ``broken`` in the receiver's slot order); again
+              on one random 589-peer state, the exchange at three cap
+              pairs (``ORACLE_SMALL_CAPS``); every cell equal, each kernel
+              launched, the round delivering and the heartbeat
+              advertising; prints the cells per output, the mismatches
+              (0) and each unpacked cube's bytes.  At most 30 s;
 4. ed25519 -- E1 against the native library on every row, its plain
               PyTorch version (on the card) at every batch up to 2048 and
               the oracle on 128 rows, over the RFC 8032 vectors and a
@@ -604,6 +621,267 @@ def check_kernels(dev, ptxas):
                                          cuda_gossip.sm_count(dev)),
             cases=cases))
     return records
+
+
+# -- phase 3b: K1 and K2 against the unpacked oracle -------------------------
+
+ORACLE_BUDGET_S = 30.0
+ORACLE_ROUNDS = 4            # rounds run after the publishes
+ORACLE_SMALL = dict(n=589, k=16, m=96, degree=8)   # check_cases' odd N
+# (max_ihave_length, max_iwant_length) of the 589-peer exchange: the
+# reference test's caps, and caps a word's ids reach, so the word-granular
+# cuts bind (about 5 ids a word are advertised on a slot).
+ORACLE_SMALL_CAPS = ((5000, 40), (10, 5), (5, 2))
+
+
+class _Oracle:
+    """Cells compared and mismatches, per kernel and output."""
+
+    def __init__(self):
+        self.cells: dict = {}
+
+    def hold(self, kernel: str, output: str, out, ref, what: str) -> None:
+        import torch
+
+        if out.shape != ref.shape or out.dtype != ref.dtype:
+            fail(f"oracle {kernel} {output} ({what}): {tuple(out.shape)} "
+                 f"{out.dtype} against {tuple(ref.shape)} {ref.dtype}")
+        if out.dtype == torch.float32:
+            out, ref = out.view(torch.int32), ref.view(torch.int32)
+        bad = int((out != ref).sum())
+        row = self.cells.setdefault(kernel, {}).setdefault(
+            output, {"cells": 0, "mismatches": 0})
+        row["cells"] += out.numel()
+        row["mismatches"] += bad
+        if bad:
+            fail(f"oracle {kernel} {output} ({what}): {bad} of "
+                 f"{out.numel()} cells differ from the unpacked reference")
+
+    def total(self, kernel: str) -> int:
+        return sum(r["cells"] for r in self.cells[kernel].values())
+
+
+def oracle_k1(orc: _Oracle, x: dict, what: str) -> bool:
+    """K1 (``cuda_gossip.propagate``) against the unpacked ``propagate``
+    on the same round, IDONTWANT off and on, with ``first_step`` stamped
+    from K1's ``new_w`` the way the model stamps it; returns whether the
+    round delivered anything."""
+    import torch
+
+    from go_libp2p_pubsub_torch.ops import bitpack, cuda_gossip
+    from go_libp2p_pubsub_torch.ops import gossip as unpacked
+
+    m = x["m"]
+    have, fresh = bitpack.unpack(x["have_w"], m), bitpack.unpack(x["fresh_w"], m)
+    valid_w = bitpack.pack(x["msg_valid"])
+    step = torch.tensor(x["step"], dtype=torch.int32, device=have.device)
+    delivered = False
+    for idw in (False, True):
+        out = cuda_gossip.propagate(
+            x["mesh"], x["nbrs"], x["edge_live"], x["alive"], x["have_w"],
+            x["fresh_w"], valid_w, idontwant=idw,
+            idw_have_w=x["idw_w"] if idw else None)
+        ref = unpacked.propagate(
+            x["mesh"], x["nbrs"], x["nbr_valid"], x["alive"], have, fresh,
+            x["first_step"], x["msg_valid"], x["step"], idontwant=idw,
+            idw_have=bitpack.unpack(x["idw_w"], m) if idw else None)
+        arm = f"{what}, idontwant {'on' if idw else 'off'}"
+        orc.hold("K1", "have", bitpack.unpack(out.have_w, m), ref.have, arm)
+        orc.hold("K1", "fresh", bitpack.unpack(out.fresh_w, m), ref.fresh,
+                 arm)
+        stamped = torch.where(
+            bitpack.unpack(out.new_w, m) & (x["first_step"] < 0), step,
+            x["first_step"])
+        orc.hold("K1", "first_step", stamped, ref.first_step, arm)
+        for name in ("fmd_inc", "mmd_inc", "invalid_inc"):
+            orc.hold("K1", name, getattr(out, name), getattr(ref, name), arm)
+        delivered = delivered or bool(ref.fresh.any())
+    return delivered
+
+
+def oracle_k2(orc: _Oracle, x: dict, what: str) -> bool:
+    """The heartbeat's exchange with its select on K2
+    (``gossip_exchange_packed(select=cuda_gossip.exchange_select)``)
+    against the unpacked ``iwant_select(ihave_advertise(...))`` under the
+    same keys; returns whether anything was advertised."""
+    from go_libp2p_pubsub_torch.ops import bitpack, cuda_gossip
+    from go_libp2p_pubsub_torch.ops import gossip as unpacked
+    from go_libp2p_pubsub_torch.ops.gossip_packed import gossip_exchange_packed
+
+    m, p, thr = x["m"], x["params"], x["gossip_threshold"]
+    pend_w, broken = gossip_exchange_packed(
+        x["key_adv"], x["key_iwant"], x["have_w"], x["dedup_w"], x["mesh"],
+        x["nbrs"], x["rev"], x["edge_live"], x["alive"], x["scores"],
+        x["gossip_w"], p, thr, x["serve_ok"], x["max_iwant"],
+        select=cuda_gossip.exchange_select)
+    adv = unpacked.ihave_advertise(
+        x["key_adv"], bitpack.unpack(x["have_w"], m), x["mesh"], x["nbrs"],
+        x["rev"], x["edge_live"], x["alive"], x["scores"],
+        bitpack.unpack(x["gossip_w"], m), p, thr)
+    pend, ref_broken = unpacked.iwant_select(
+        x["key_iwant"], adv, bitpack.unpack(x["dedup_w"], m), x["edge_live"],
+        x["scores"], x["serve_ok"], x["alive"], x["max_iwant"], thr)
+    orc.hold("K2", "pend", bitpack.unpack(pend_w, m), pend, what)
+    orc.hold("K2", "broken", broken, ref_broken, what)
+    return bool(adv.any())
+
+
+def oracle_headline(dev):
+    """The closed loop's model (100,000 peers, 32 slots, degree 16, 128
+    messages; 3 warmup heartbeats in ``init``), the window's 128 publishes
+    with their native verdicts, ``ORACLE_ROUNDS`` rounds in (``run``); then
+    K1's round inputs as ``GossipSub._propagate`` builds them and K2's as
+    ``profile_rollout.phase_breakdown`` builds them for ``hb_gossip``."""
+    import numpy as np
+
+    from go_libp2p_pubsub_torch.crypto import native
+    from go_libp2p_pubsub_torch.models.gossipsub import GossipSub
+    from go_libp2p_pubsub_torch.ops import rng as rng_ops
+    from go_libp2p_pubsub_torch.ops import scoring as scoring_ops
+    from go_libp2p_pubsub_torch.ops.bitpack import as_mask
+    from go_libp2p_pubsub_torch.ops.gossip import heartbeat_mesh
+    from go_libp2p_pubsub_torch.ops.graphs import safe_gather
+
+    rng = np.random.default_rng(1)
+    envs, _ = signed_window(rng)
+    verdicts = native.verify_batch(
+        [e.pubkey for e in envs],
+        [native.signing_bytes(e.topic, e.seqno, e.payload) for e in envs],
+        [e.signature for e in envs])
+    gs = GossipSub(device=dev, **HEADLINE)
+    st = gs.init(seed=0)
+    for slot in range(N_MSGS):
+        st = gs.publish(st, int(rng.integers(HEADLINE["n_peers"])), slot,
+                        bool(verdicts[slot]))
+    st = gs._widen_indices(gs.run(st, ORACLE_ROUNDS))
+    p, sp = gs.params, gs.score_params
+
+    # K1: the round's inputs, as _propagate builds them (no direct edges,
+    # no per-edge delay, no hybrid hooks at this geometry).
+    ready_w = as_mask(st.pend_hold <= 0)[:, None]
+    gossip_new = (st.gossip_pend_w & ready_w & ~st.have_w
+                  & as_mask(st.alive)[:, None])
+    k1 = dict(
+        m=gs.m, mesh=st.mesh & (st.scores >= sp.graylist_threshold),
+        nbrs=st.nbrs, nbr_valid=st.nbr_valid, edge_live=st.edge_live,
+        alive=st.alive, have_w=st.have_w | gossip_new, fresh_w=st.fresh_w,
+        msg_valid=st.msg_valid & st.msg_active, first_step=st.first_step,
+        step=st.step, idw_w=st.have_w)
+
+    # K2: hb_gossip's inputs (scores, the maintained mesh, the edge and
+    # participant masks, the scrubbed dedup view and the window).
+    c = scoring_ops.tick_mesh_clocks(st.counters, st.mesh,
+                                     p.heartbeat_interval_s)
+    c = scoring_ops.decay_topic_counters(c, sp)
+    g = scoring_ops.decay_global_counters(st.gcounters, sp)
+    scores = scoring_ops.neighbor_scores(c, g, st.nbrs, st.nbr_valid, sp)
+    part = st.alive & st.subscribed
+    edge_ok = st.edge_live & st.nbr_sub
+    key_mesh, key_adv, key_iwant = rng_ops.split(
+        rng_ops.PRNGKey(1, device=dev), 3)
+    nm = heartbeat_mesh(
+        key_mesh, st.mesh, scores, st.nbrs, st.rev, edge_ok, part, p,
+        st.backoff, st.outbound, False,
+        og_threshold=sp.opportunistic_graft_threshold)[0]
+    dedup_w, gossip_w = gs.gossip_window_masks(st)
+    k2 = dict(
+        m=gs.m, params=p, gossip_threshold=sp.gossip_threshold,
+        key_adv=key_adv, key_iwant=key_iwant, have_w=st.have_w,
+        dedup_w=dedup_w, mesh=nm, nbrs=st.nbrs, rev=st.rev,
+        edge_live=edge_ok, alive=part, scores=scores, gossip_w=gossip_w,
+        serve_ok=~safe_gather(st.gossip_mute, st.nbrs, True),
+        max_iwant=p.max_iwant_length)
+    return k1, [k2]
+
+
+def oracle_small(dev, seed: int = 0):
+    """One random state made as ``tests/test_gossip_packed.py`` makes its
+    states, at ``ORACLE_SMALL`` (589 peers), on the card."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_torch.config import GossipSubParams
+    from go_libp2p_pubsub_torch.models.gossipsub import build_topology
+    from go_libp2p_pubsub_torch.ops import bitpack
+    from go_libp2p_pubsub_torch.ops import rng as rng_ops
+
+    n, k, m = ORACLE_SMALL["n"], ORACLE_SMALL["k"], ORACLE_SMALL["m"]
+    rng = np.random.default_rng(seed)
+    nbrs, rev, valid, _ = build_topology(rng, n, k, ORACLE_SMALL["degree"])
+    nbrs, rev = nbrs.astype(np.int32), rev.astype(np.int32)
+    mesh = valid & (rng.random((n, k)) < 0.6)
+    j = np.clip(nbrs, 0, n - 1)
+    mesh = mesh & mesh[j, np.clip(rev, 0, k - 1)]
+    alive = rng.random(n) < 0.9
+    have = rng.random((n, m)) < 0.2
+    fresh = have & (rng.random((n, m)) < 0.5)
+    msg_valid = rng.random(m) < 0.8
+    scores = rng.normal(0, 1, (n, k)).astype(np.float32)
+    serve_ok = rng.random((n, k)) < 0.66
+    dedup = have & (rng.random((n, m)) < 0.9)
+    pre = have & (rng.random((n, m)) < 0.5)
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    have_w = bitpack.pack(on(have))
+    k1 = dict(
+        m=m, mesh=on(mesh), nbrs=on(nbrs), nbr_valid=on(valid),
+        edge_live=on(valid & alive[j]), alive=on(alive), have_w=have_w,
+        fresh_w=bitpack.pack(on(fresh)), msg_valid=on(msg_valid),
+        first_step=torch.full((n, m), -1, dtype=torch.int32, device=dev),
+        step=7, idw_w=bitpack.pack(on(pre)))
+    k2 = dict(
+        m=m, gossip_threshold=-0.5,
+        key_adv=rng_ops.PRNGKey(seed, device=dev),
+        key_iwant=rng_ops.PRNGKey(seed + 100, device=dev), have_w=have_w,
+        dedup_w=bitpack.pack(on(dedup)), mesh=k1["mesh"], nbrs=k1["nbrs"],
+        rev=on(rev), edge_live=k1["edge_live"], alive=k1["alive"],
+        scores=on(scores), gossip_w=bitpack.pack(on(msg_valid)),
+        serve_ok=on(serve_ok))
+    return k1, [dict(k2, params=GossipSubParams(d_lazy=4, max_ihave_length=ci),
+                     max_iwant=cw) for ci, cw in ORACLE_SMALL_CAPS]
+
+
+def oracle_phase(dev, card: str):
+    """Phase 3b: K1 and K2 held against the unpacked gossip plane
+    (``ops/gossip.py``), an oracle independent of the packed form, at the
+    closed loop's state at 100,000 peers and at one random 589-peer state.
+    Returns the cells compared per kernel."""
+    import torch
+
+    from go_libp2p_pubsub_torch.ops import cuda_gossip
+
+    t0 = time.perf_counter()
+    orc = _Oracle()
+    cube_bytes = {}
+    for what, build in (("headline", oracle_headline), ("589", oracle_small)):
+        k1, k2s = build(dev)
+        n, k = k1["nbrs"].shape
+        cube_bytes[what] = n * k * k1["m"]       # one bool[N, K, M] cube
+        cuda_gossip.reset_launches()
+        delivered = oracle_k1(orc, k1, what)
+        advertised = all([
+            oracle_k2(orc, x, f"{what}, caps {x['params'].max_ihave_length}"
+                      f"/{x['max_iwant']}") for x in k2s])
+        torch.cuda.synchronize(dev)
+        launched = (cuda_gossip.propagate.launches,
+                    cuda_gossip.exchange_select.launches)
+        if launched != (2, len(k2s)):
+            fail(f"oracle {what}: K1/K2 launched {launched}, not "
+                 f"(2, {len(k2s)})")
+        if not (delivered and advertised):
+            fail(f"oracle {what}: the round delivered {delivered}, the "
+                 f"heartbeat advertised {advertised}: nothing to compare")
+        del k1, k2s
+    cuda_gossip.reset_launches()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    emit(dict(phase="oracle", seconds=seconds, budget_s=ORACLE_BUDGET_S,
+              outputs=orc.cells, cube_bytes=cube_bytes,
+              mismatches=sum(r["mismatches"] for kern in orc.cells.values()
+                             for r in kern.values()), card=card))
+    if seconds > ORACLE_BUDGET_S:
+        fail(f"phase oracle took {seconds:.1f} s, over {ORACLE_BUDGET_S}")
+    return {"gossip_propagate": orc.total("K1"),
+            "gossip_exchange": orc.total("K2")}
 
 
 # -- phase 4: the ed25519 verify kernel E1 ---------------------------------------
@@ -4458,7 +4736,8 @@ def tools_phase(dev, card: str):
     return launches
 
 
-PHASES = {"main": main_path, "scenario": scenario_phase,
+PHASES = {"oracle": oracle_phase, "main": main_path,
+          "scenario": scenario_phase,
           "serve": serve_phase, "tree": tree_phase, "coded": coded_phase,
           "sharded": sharded_phase, "live": live_phase, "tools": tools_phase}
 
@@ -4514,6 +4793,9 @@ def main() -> None:
         return
 
     records = check_kernels(dev, ptxas)
+    oracle_cells = oracle_phase(dev, card)
+    for r in records:
+        r["oracle_cells"] = oracle_cells[r["name"]]
     records.append(check_ed25519(dev, e1_ptxas, imads, card, baseline))
     launches = main_path(dev, card)
     scenario_launches = scenario_phase(dev, card)

@@ -15,6 +15,7 @@ two copies to each other.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass
 from typing import Any, Dict
 
@@ -276,3 +277,12 @@ class ScoreParams:
 def to_dict(cfg: Any) -> Dict[str, Any]:
     """Serialize a config dataclass to a plain dict."""
     return dataclasses.asdict(cfg)
+
+
+def to_json(cfg: Any) -> str:
+    """Serialize a config dataclass to JSON (keys sorted)."""
+    return json.dumps(to_dict(cfg), sort_keys=True)
+
+
+def tree_opts_from_dict(d: Dict[str, Any]) -> TreeOpts:
+    return TreeOpts(**d)

@@ -10,7 +10,8 @@ next to the sources.
 
 API (batched and thread-parallel in C++): :func:`verify_batch`,
 :func:`sign_batch`, :func:`public_key_batch`; one at a time:
-:func:`public_key`, :func:`sign`; :func:`available`.
+:func:`sha512`, :func:`public_key`, :func:`sign`, :func:`verify`;
+:func:`available`.
 """
 
 from __future__ import annotations
@@ -79,6 +80,10 @@ def _load() -> ctypes.CDLL:
             u8p, ctypes.c_int64, ctypes.c_int, u8p,
         ]
         lib.ed25519_public_key_batch.restype = None
+        lib.ed25519_sha512.argtypes = [u8p, ctypes.c_uint64, u8p]
+        lib.ed25519_sha512.restype = None
+        lib.ed25519_verify.argtypes = [u8p, u8p, u8p, ctypes.c_uint64]
+        lib.ed25519_verify.restype = ctypes.c_int
         _lib = lib
         return lib
 
@@ -195,3 +200,28 @@ def sign(seed: bytes, msg: bytes) -> bytes:
     if len(seed) != 32:
         raise ValueError(f"seed must be 32 bytes, got {len(seed)}")
     return sign_batch([seed], [msg], threads=1)[0]
+
+
+def sha512(msg: bytes) -> bytes:
+    """The 64-byte SHA-512 digest of ``msg`` (the library's own hash)."""
+    lib = _load()
+    m = np.frombuffer(msg, dtype=np.uint8) if msg else np.zeros(1, np.uint8)
+    out = np.zeros(64, np.uint8)
+    lib.ed25519_sha512(_as_u8p(np.ascontiguousarray(m)), len(msg),
+                       _as_u8p(out))
+    return out.tobytes()
+
+
+def verify(pk: bytes, msg: bytes, sig: bytes) -> bool:
+    """One signature's verdict."""
+    # Malformed authenticators are a defined reject, matching ed25519_ref:
+    # the C side reads exactly 32/64 bytes and must never read past a short
+    # buffer.
+    if len(pk) != 32 or len(sig) != 64:
+        return False
+    lib = _load()
+    p = np.frombuffer(pk, dtype=np.uint8).copy()
+    g = np.frombuffer(sig, dtype=np.uint8).copy()
+    m = np.frombuffer(msg, dtype=np.uint8) if msg else np.zeros(1, np.uint8)
+    return bool(lib.ed25519_verify(
+        _as_u8p(p), _as_u8p(g), _as_u8p(np.ascontiguousarray(m)), len(msg)))

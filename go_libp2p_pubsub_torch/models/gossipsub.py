@@ -1254,6 +1254,10 @@ class GossipSub:
         st, per_msg = self._step_wide(self._widen_indices(st), True)
         return self._narrow_indices(st), per_msg
 
+    def run(self, st: GossipState, n_steps: int) -> GossipState:
+        """``n_steps`` rounds without the recorder."""
+        return self.rollout(st, n_steps, record=False)[0]
+
     def rollout(self, st: GossipState, n_steps: int, record: bool = True):
         """``n_steps`` rounds -> (final state, flight record | None).
 
@@ -1315,6 +1319,17 @@ class GossipSub:
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
+
+    @staticmethod
+    def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Mean of ``x`` over ``mask``; NaN when the mask is empty.  The
+        on-device form of ``reduce_order.masked_mean``: the masked sum is
+        added in the reference's XLA order (``reduce_order.xla_sum``), then
+        divided by the count in f32."""
+        cnt = mask.sum()
+        total = reduce_order.xla_sum(torch.where(mask, x, 0.0))
+        mean = total / torch.clamp(cnt, min=1).to(torch.float32)
+        return torch.where(cnt > 0, mean, torch.nan)
 
     @staticmethod
     def masked_min(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

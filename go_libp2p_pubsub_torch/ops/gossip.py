@@ -1,11 +1,17 @@
-"""GossipSub mesh ops: gossip emission, IWANT priority, heartbeat maintenance.
+"""GossipSub mesh ops: eager push, lazy gossip, heartbeat maintenance.
 
-Port of the JAX package's ``ops/gossip.py`` (the parts the packed model
-runs): ``uniform_by_uid``, ``gossip_emission_mask``, ``iwant_priority``,
-``masked_median`` and ``heartbeat_mesh``.  The representation is the
-reference's: ``nbrs`` int32[N, K] maps each peer's K connection slots to
-remote peer ids, ``rev`` int32[N, K] gives the remote's slot pointing
-back, and mesh membership and scores are dense [N, K] planes.
+Port of the JAX package's ``ops/gossip.py``, whole: ``uniform_by_uid``,
+``gossip_emission_mask``, ``iwant_priority``, ``masked_median`` and
+``heartbeat_mesh``, which the packed model runs, and the unpacked boolean
+[N, K, M] forms of the eager push and the IHAVE/IWANT exchange
+(``PropagateOut``/``propagate``, ``cap_ihave``, ``ihave_advertise``,
+``iwant_select``).  The unpacked forms are reference code that no model
+path calls: they are the semantics the packed ops of
+``ops/gossip_packed.py`` and kernels K1/K2 are held to, independent of the
+word layout.  The representation is the reference's: ``nbrs``
+int32[N, K] maps each peer's K connection slots to remote peer ids,
+``rev`` int32[N, K] gives the remote's slot pointing back, and mesh
+membership and scores are dense [N, K] planes.
 
 Random draws come from ``ops/rng.py`` (threefry, bit for bit with
 ``jax.random``), so every keyed choice equals the reference's.  The
@@ -16,13 +22,13 @@ host owns, so the branch never syncs with the device.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..config import GossipSubParams
 from . import rng
-from .graphs import top_mask
+from .graphs import safe_gather, top_mask
 
 
 def uniform_by_uid(
@@ -70,6 +76,109 @@ def gossip_emission_mask(
     return top_mask(torch.where(eligible, r, -torch.inf), emit, kmax=k)
 
 
+class PropagateOut(NamedTuple):
+    have: torch.Tensor
+    fresh: torch.Tensor
+    first_step: torch.Tensor
+    fmd_inc: torch.Tensor      # f32[N, K] first-delivery increments (valid msgs)
+    mmd_inc: torch.Tensor      # f32[N, K] mesh-delivery increments
+    invalid_inc: torch.Tensor  # f32[N, K] invalid first-delivery increments
+
+
+def propagate(
+    mesh: torch.Tensor,        # bool[N, K] symmetric mesh membership
+    nbrs: torch.Tensor,        # int32[N, K]
+    nbr_valid: torch.Tensor,   # bool[N, K]
+    alive: torch.Tensor,       # bool[N]
+    have: torch.Tensor,        # bool[N, M]
+    fresh: torch.Tensor,       # bool[N, M] first-received last round
+    first_step: torch.Tensor,  # int32[N, M] step of first receipt, -1 = never
+    msg_valid: torch.Tensor,   # bool[M] validation verdict per message
+    step,                      # int or 0-d int32 tensor: the current step
+    idontwant: bool = False,   # v1.2: senders skip ids the receiver had
+    idw_have: Optional[torch.Tensor] = None,  # bool[N, M] pre-fold view
+) -> PropagateOut:
+    """One eager-push round over the unpacked [N, K, M] incoming cube:
+    mesh neighbors relay last round's first receipts; receivers
+    deduplicate, credit the lowest delivering slot, and keep valid
+    messages for relay next round.  Under ``idontwant`` the copies of ids
+    the receiver held in ``idw_have`` (default ``have``) leave the P3
+    count only.  The increments are sums of at most M booleans, exact in
+    f32."""
+    n, k = nbrs.shape
+
+    j = torch.clamp(nbrs, 0, n - 1).long()
+    edge_ok = mesh & nbr_valid & safe_gather(alive, nbrs, False)
+    incoming = edge_ok[:, :, None] & fresh[j]                 # bool[N, K, M]
+
+    arrived = incoming.any(dim=1)                             # bool[N, M]
+    new = arrived & ~have & alive[:, None]
+
+    # First-delivering slot per (peer, msg): the lowest slot among senders.
+    prefix = torch.cumsum(incoming.to(torch.int32), dim=1)
+    first_sender = incoming & (prefix == 1)
+    newly = first_sender & new[:, None, :]
+
+    fmd_inc = (newly & msg_valid[None, None, :]).sum(dim=2).to(torch.float32)
+    invalid_inc = (newly & ~msg_valid[None, None, :]).sum(dim=2).to(
+        torch.float32)
+    idw = have if idw_have is None else idw_have
+    counted = incoming if not idontwant else (incoming & ~idw[:, None, :])
+    mmd_inc = (counted & msg_valid[None, None, :]).sum(dim=2).to(
+        torch.float32)
+
+    have_next = have | (new & msg_valid[None, :])
+    fresh_next = new & msg_valid[None, :]
+    first_step_next = torch.where(new & (first_step < 0), step, first_step)
+
+    return PropagateOut(
+        have_next, fresh_next, first_step_next, fmd_inc, mmd_inc, invalid_inc
+    )
+
+
+def cap_ihave(adv: torch.Tensor, max_len: int) -> torch.Tensor:
+    """Truncate each IHAVE (bool[..., M] advertisement) to at most
+    ``max_len`` ids at 32-bit-word granularity: whole words are kept while
+    the cumulative id count fits (the packed ops' cap, bit for bit)."""
+    m = adv.shape[-1]
+    w = (m + 31) // 32
+    padded = torch.nn.functional.pad(adv, (0, w * 32 - m))
+    words = padded.reshape(adv.shape[:-1] + (w, 32))
+    counts = words.sum(dim=-1)
+    cum = torch.cumsum(counts, dim=-1)
+    keep = (cum <= max_len)[..., None]
+    return (words & keep).reshape(adv.shape[:-1] + (w * 32,))[..., :m]
+
+
+def ihave_advertise(
+    key: torch.Tensor,
+    have: torch.Tensor,        # bool[N, M]
+    mesh: torch.Tensor,        # bool[N, K]
+    nbrs: torch.Tensor,        # int32[N, K]
+    rev: torch.Tensor,         # int32[N, K]
+    edge_live: torch.Tensor,   # bool[N, K]
+    alive: torch.Tensor,       # bool[N]
+    scores: torch.Tensor,      # f32[N, K] my view of each neighbor slot
+    gossip_msgs: torch.Tensor,  # bool[M] advertisable window
+    p: GossipSubParams,
+    gossip_threshold: float,
+    uid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Heartbeat IHAVE phase -> adv bool[N, K, M]: ``adv[i, s]`` is the set
+    of ids advertised TO peer i BY its neighbor slot s, restricted to
+    ``gossip_msgs`` and capped at ``max_ihave_length`` (target-side
+    reverse gather)."""
+    n, k = nbrs.shape
+    chosen = gossip_emission_mask(
+        key, mesh, edge_live, alive, scores, p, gossip_threshold, uid
+    )
+    jidx = torch.clamp(nbrs, 0, n - 1).long()
+    ridx = torch.clamp(rev, 0, k - 1).long()
+    towards_me = chosen[jidx, ridx] & edge_live
+    adv = towards_me[:, :, None] & (have & gossip_msgs[None, :])[jidx]
+    return cap_ihave(adv, p.max_ihave_length)
+
+
 def iwant_priority(
     key: torch.Tensor, n: int, k: int, uid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -80,6 +189,39 @@ def iwant_priority(
     perm = torch.argsort(r, dim=1, stable=True)
     inv = torch.argsort(perm, dim=1, stable=True)
     return perm.to(torch.int32), inv.to(torch.int32)
+
+
+def iwant_select(
+    key: torch.Tensor,
+    adv: torch.Tensor,        # bool[N, K, M] advertisements this heartbeat
+    have: torch.Tensor,       # bool[N, M]
+    edge_live: torch.Tensor,  # bool[N, K]
+    scores: torch.Tensor,     # f32[N, K] receiver's score of each advertiser
+    serve_ok: torch.Tensor,   # bool[N, K] the advertiser will serve
+    alive: torch.Tensor,      # bool[N]
+    max_iwant_length: int,
+    gossip_threshold: float,
+    uid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """IWANT phase with promise accounting -> (pend bool[N, M], broken
+    f32[N, K]): IHAVEs from advertisers scored below ``gossip_threshold``
+    are ignored; each wanted id is asked of its first advertiser in a keyed
+    random slot order, asks are capped per advertiser at
+    ``max_iwant_length`` (word-granular), and asks to advertisers that do
+    not serve count as broken promises."""
+    n, k = edge_live.shape
+    accept = edge_live & (scores >= gossip_threshold)
+    want = adv & ~have[:, None, :] & accept[:, :, None]
+    perm, inv = iwant_priority(key, n, k, uid)
+    want_p = want.gather(1, perm.long()[:, :, None].expand_as(want))
+    prefix = torch.cumsum(want_p.to(torch.int32), dim=1)
+    first_p = want_p & (prefix == 1)
+    first = first_p.gather(1, inv.long()[:, :, None].expand_as(first_p))
+    asked = cap_ihave(first, max_iwant_length)
+    served = asked & serve_ok[:, :, None]
+    pend = served.any(dim=1) & alive[:, None]
+    broken = (asked & ~serve_ok[:, :, None]).sum(dim=2).to(torch.float32)
+    return pend, broken
 
 
 def masked_median(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,8 @@ from .bitpack import as_mask, popcount_words
 from .gossip import gossip_emission_mask, iwant_priority
 from .graphs import take_rows
 
+FULL = bitpack.FULL  # the all-ones word, as the int32 bit pattern -1
+
 
 def ring_gather_rows(table: torch.Tensor, idx: torch.Tensor, mesh
                      ) -> torch.Tensor:

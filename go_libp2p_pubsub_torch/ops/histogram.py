@@ -1,16 +1,17 @@
 """Histogram reductions of the flight recorder's latency plane.
 
-Port of the JAX package's ``ops/histogram.py`` (the functions the
-recorded rollout and its summary use).  Latencies are whole rounds, so a
-fixed-bin integer histogram carried through the rollout and advanced by
-each round's new receipts gives exact quantiles afterwards with no host
-sync inside the rollout.  Scatter-adds are ``index_add_`` with the
-masked-out entries routed to an overflow bin that is cut off.
+Port of the JAX package's ``ops/histogram.py``.  Latencies are whole
+rounds, so a fixed-bin integer histogram carried through the rollout and
+advanced by each round's new receipts gives exact quantiles afterwards
+with no host sync inside the rollout.  Scatter-adds are ``index_add_``
+with the masked-out entries routed to an overflow bin that is cut off.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .fma import fma
 
 
 def _bin_counts(values: torch.Tensor, seg: torch.Tensor, n_bins: int):
@@ -74,6 +75,40 @@ def hist_quantile(counts: torch.Tensor, q: float) -> torch.Tensor:
     frac = h - lo
     v = (1.0 - frac) * value_at(lo) + frac * value_at(hi)
     return torch.where(total > 0, v, torch.nan)
+
+
+def masked_quantiles(values: torch.Tensor, mask: torch.Tensor, qs
+                     ) -> torch.Tensor:
+    """f32[len(qs)] exact quantiles of ``values`` where ``mask`` (NaN where
+    it selects nothing), bit for bit as ``jnp.nanpercentile`` computes them
+    on XLA's CPU backend: a sort that puts the masked-out NaNs last, then
+    numpy's "linear" interpolation between the two neighbouring order
+    statistics.  It sorts, so it belongs on per-peer summaries, never
+    inside a rollout.
+
+    XLA's arithmetic, which this follows: the rank ``(qs * 100) / 100 *
+    (count - 1)`` divides by multiplying with the f32 reciprocal 0.01, and
+    for more than one quantile folds the two scalar factors first
+    (``pct * (0.01 * (count - 1))``, which rounds differently from the
+    one-quantile order ``(pct * 0.01) * (count - 1)``); the interpolation
+    ``lo * (1 - w) + hi * w`` is contracted to ``fma(hi, w, lo * (1 -
+    w))``."""
+    a = torch.where(mask, values.to(torch.float32), torch.nan).reshape(-1)
+    a = torch.sort(a).values
+    pct = torch.as_tensor(qs, dtype=torch.float32, device=a.device) * 100.0
+    counts = (~torch.isnan(a)).sum().to(torch.float32)
+    span = counts - 1.0
+    if pct.numel() == 1:
+        q = (pct * 0.01) * span
+    else:
+        q = pct * (span * 0.01)
+    low = torch.floor(q)
+    high = torch.ceil(q)
+    high_weight = q - low
+    low_weight = 1.0 - high_weight
+    low = torch.clamp(torch.minimum(low, span), min=0.0).long()
+    high = torch.clamp(torch.minimum(high, span), min=0.0).long()
+    return fma(a[high], high_weight, a[low] * low_weight)
 
 
 def binned_quantiles(values: torch.Tensor, mask: torch.Tensor, qs,
