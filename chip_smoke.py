@@ -2921,6 +2921,68 @@ def _hybrid_small(device, loss):
     return model.rollout(st, CODED_SMALL_STEPS, record=True)
 
 
+# The loss estimate across FLT_MIN: a hybrid at 64 peers and K = 8 (the
+# width whose slot sums vectorise in the reference's XLA order).
+SUBNORMAL_HYBRID = dict(n_peers=64, n_slots=8, conn_degree=6, msg_window=16,
+                        heartbeat_steps=4, gen_size=4)
+SUBNORMAL_STEPS = 6
+
+
+def _hybrid_subnormal(device):
+    """The hybrid with its loss estimate carried in through the bridge at
+    2**-6 to 2**3 times FLT_MIN (a seeded draw), rolled and recorded on
+    clean ingress: expected rounds decay it across FLT_MIN, where the
+    reference's flushing arithmetic stores zero -> (the carried estimate,
+    the final state, the record)."""
+    import numpy as np
+
+    from go_libp2p_pubsub_torch import bridge
+    from go_libp2p_pubsub_torch.models.hybrid import HybridGossipSub
+
+    model = HybridGossipSub(device=device, **SUBNORMAL_HYBRID)
+    st = model.init(3)
+    for src, slot in ((0, 0), (5, 1), (9, 2), (11, 3), (20, 4)):
+        st = model.publish(st, src, slot, True)
+    host = bridge.hybrid_state_to_numpy(st)
+    ewma = (np.finfo(np.float32).tiny * np.exp2(np.random.default_rng(5)
+            .uniform(-6, 3, host.loss_ewma.shape))).astype(np.float32)
+    st = bridge.hybrid_state_from_numpy(host._replace(loss_ewma=ewma),
+                                        device)
+    return (ewma,) + model.rollout(st, SUBNORMAL_STEPS, record=True)
+
+
+def coded_subnormal(dev):
+    """Card = CPU with the loss estimate crossing FLT_MIN: every state
+    leaf and record channel bit for bit, and some estimates flushed."""
+    import numpy as np
+
+    from go_libp2p_pubsub_torch.models.coded_trace import PortEngine
+
+    t0 = time.perf_counter()
+    (ewma, fa, ra), (_, fb, rb) = (_hybrid_subnormal(d) for d in (dev, "cpu"))
+    la, lb = PortEngine().leaves(None, fa), PortEngine().leaves(None, fb)
+    pairs = [(f"state {k}", la[k], lb.get(k)) for k in la]
+    pairs += [(f"record {k}", ra[k].cpu().numpy(),
+               rb[k].cpu().numpy() if k in rb else None) for k in ra]
+    bad = [what for what, x, y in pairs
+           if y is None or x.dtype != y.dtype or x.tobytes() != y.tobytes()]
+    if la.keys() != lb.keys() or ra.keys() != rb.keys():
+        bad.append("the leaves or channels")
+    end = lb["loss_ewma"]
+    flushed = int(((end == 0) & (ewma != 0)).sum())
+    seconds = time.perf_counter() - t0
+    print(f"coded subnormal card = CPU: {len(pairs)} cases, {len(bad)} "
+          f"mismatches, {seconds:.2f} s", flush=True)
+    if bad:
+        fail(f"hybrid across FLT_MIN: card and CPU differ in {bad}")
+    if flushed == 0:
+        fail("hybrid across FLT_MIN: no loss estimate was flushed")
+    return dict(**SUBNORMAL_HYBRID, steps=SUBNORMAL_STEPS, cases=len(pairs),
+                mismatches=len(bad), carried_subnormal=int(
+                    (ewma < np.finfo(np.float32).tiny).sum()),
+                flushed=flushed, seconds=seconds)
+
+
 def _hybrid_engine_crash(device, path):
     """A hybrid streaming engine under decimation 2, killed after two
     chunks: a fresh engine warms up, restores the snapshot (partial
@@ -3247,6 +3309,7 @@ def coded_phase(dev, card: str):
     cuda_ed25519.reset_launches()
     for key, section in (("replays", lambda: coded_replays(dev)),
                          ("card_equals_cpu", lambda: coded_small(dev)),
+                         ("subnormal", lambda: coded_subnormal(dev)),
                          ("rlnc_100k", lambda: rlnc_full(dev, card))):
         t1 = time.perf_counter()
         sections[key] = section()

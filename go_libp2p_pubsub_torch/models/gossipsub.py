@@ -70,7 +70,7 @@ from ..ops import reduce_order
 from ..ops import rng
 from ..ops import scoring as scoring_ops
 from ..ops.bitpack import as_mask
-from ..ops.fma import fma
+from ..ops.fma import fma, ftz
 from ..ops.gossip import heartbeat_mesh, uniform_by_uid
 from ..ops.gossip_packed import exchange_prep
 from ..ops.graphs import (
@@ -1325,10 +1325,10 @@ class GossipSub:
         """Mean of ``x`` over ``mask``; NaN when the mask is empty.  The
         on-device form of ``reduce_order.masked_mean``: the masked sum is
         added in the reference's XLA order (``reduce_order.xla_sum``), then
-        divided by the count in f32."""
+        divided by the count in f32 and flushed (``ops/fma.ftz``)."""
         cnt = mask.sum()
         total = reduce_order.xla_sum(torch.where(mask, x, 0.0))
-        mean = total / torch.clamp(cnt, min=1).to(torch.float32)
+        mean = ftz(total / torch.clamp(cnt, min=1).to(torch.float32))
         return torch.where(cnt > 0, mean, torch.nan)
 
     @staticmethod

@@ -41,8 +41,9 @@ Differences of form, none of which changes a bit of state:
   inputs, so the selection is the cond's result bit for bit.
 - The heartbeat runs on the host's schedule of ``step`` (the port's
   GossipSub owns ``step`` on the host).
-- ``loss_ewma_mean`` is summed in XLA's CPU order
-  (``ops/reduce_order.xla_sum``).
+- ``loss_ewma_mean`` is summed in XLA's CPU order at every slot width,
+  vectorised rows included, and its division is flushed as XLA flushes a
+  subnormal (``ops/reduce_order.xla_sum``, ``ops/fma.ftz``).
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ from ..ops import histogram as hist_ops
 from ..ops import loss_estimator as loss_ops
 from ..ops import reduce_order
 from ..ops import rng
+from ..ops.fma import ftz
 from ..ops.schedule import MultiTopicEvents
 from .gossipsub import (
     FLIGHT_HIST_BINS,
@@ -448,9 +450,9 @@ class HybridGossipSub:
         rec = self.gs.flight_record_round(st.gossip, lat_hist)
         wired = st.gossip.nbr_valid
         rec["coded_edges"] = (st.coded & wired).sum(dtype=torch.int32)
-        rec["loss_ewma_mean"] = reduce_order.xla_sum(
+        rec["loss_ewma_mean"] = ftz(reduce_order.xla_sum(
             torch.where(wired, st.loss_ewma, 0.0)) / torch.clamp(
-                wired.sum(dtype=torch.int32), min=1)
+                wired.sum(dtype=torch.int32), min=1))
         return rec
 
     def delivery_stats(self, st: HybridState):

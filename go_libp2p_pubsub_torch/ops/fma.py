@@ -12,12 +12,30 @@ torch has no fma op, so :func:`fma` computes it exactly: the product of
 two float32 values is exact in float64 (24 + 24 bits), the sum is taken
 with an exact error term (TwoSum), and rounding the float64 sum to odd
 makes the final cast to float32 a single, correct rounding.
+
+The same backend runs its float arithmetic with the x86 MXCSR modes
+flush-to-zero and denormals-are-zero: an add, multiply, divide, fused
+multiply-add, min/max or comparison reads a subnormal operand as a zero
+of its sign and writes a subnormal result as one.  A select, a copy,
+``abs``, negation and a sort's data movement pass a subnormal on
+unchanged.  :func:`ftz` is that flush, written out so that it runs alike
+on the CPU and the card; each call site names the arithmetic it stands
+for.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+FLT_MIN = float(np.finfo(np.float32).tiny)
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every subnormal float32 replaced by a zero of its sign;
+    zeros, normal values, infinities and NaNs keep their bits."""
+    return torch.where(x.abs() < FLT_MIN, x * 0.0, x)
 
 
 def _f64(x):

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from .fma import fma
+from .fma import fma, ftz
 
 
 def _bin_counts(values: torch.Tensor, seg: torch.Tensor, n_bins: int):
@@ -81,10 +81,16 @@ def masked_quantiles(values: torch.Tensor, mask: torch.Tensor, qs
                      ) -> torch.Tensor:
     """f32[len(qs)] exact quantiles of ``values`` where ``mask`` (NaN where
     it selects nothing), bit for bit as ``jnp.nanpercentile`` computes them
-    on XLA's CPU backend: a sort that puts the masked-out NaNs last, then
-    numpy's "linear" interpolation between the two neighbouring order
-    statistics.  It sorts, so it belongs on per-peer summaries, never
-    inside a rollout.
+    on XLA's CPU backend, subnormal values included: a stable sort that
+    puts the masked-out NaNs last, then numpy's "linear" interpolation
+    between the two neighbouring order statistics.  It sorts, so it
+    belongs on per-peer summaries, never inside a rollout.
+
+    The reference's sort keys compare a subnormal as zero and its
+    arithmetic flushes subnormal operands and results (``ops/fma``
+    ``ftz``), so the values are flushed before the sort, which keeps ties
+    in their input order, and the interpolation's product and result
+    after.
 
     XLA's arithmetic, which this follows: the rank ``(qs * 100) / 100 *
     (count - 1)`` divides by multiplying with the f32 reciprocal 0.01, and
@@ -93,8 +99,8 @@ def masked_quantiles(values: torch.Tensor, mask: torch.Tensor, qs
     one-quantile order ``(pct * 0.01) * (count - 1)``); the interpolation
     ``lo * (1 - w) + hi * w`` is contracted to ``fma(hi, w, lo * (1 -
     w))``."""
-    a = torch.where(mask, values.to(torch.float32), torch.nan).reshape(-1)
-    a = torch.sort(a).values
+    a = torch.where(mask, ftz(values.to(torch.float32)), torch.nan)
+    a = torch.sort(a.reshape(-1), stable=True).values
     pct = torch.as_tensor(qs, dtype=torch.float32, device=a.device) * 100.0
     counts = (~torch.isnan(a)).sum().to(torch.float32)
     span = counts - 1.0
@@ -108,7 +114,7 @@ def masked_quantiles(values: torch.Tensor, mask: torch.Tensor, qs
     low_weight = 1.0 - high_weight
     low = torch.clamp(torch.minimum(low, span), min=0.0).long()
     high = torch.clamp(torch.minimum(high, span), min=0.0).long()
-    return fma(a[high], high_weight, a[low] * low_weight)
+    return ftz(fma(a[high], high_weight, ftz(a[low] * low_weight)))
 
 
 def binned_quantiles(values: torch.Tensor, mask: torch.Tensor, qs,

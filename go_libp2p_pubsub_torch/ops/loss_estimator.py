@@ -14,6 +14,14 @@ backend contracts ``(1 - alpha) * loss + alpha * miss`` into one fused
 multiply-add, ``fma(1 - alpha, loss, alpha * miss)`` (``alpha * miss``
 is exact: ``miss`` is 0 or 1).  The port rounds the same way through
 ``ops/fma.py``, so the estimate's float32 bits are the reference's.
+
+On a clean edge the estimate decays by ``1 - alpha`` a round and, from
+1.0 at alpha 0.25, falls below the smallest normal float32 after about
+300 rounds.  The reference's arithmetic flushes subnormals (``ops/fma``
+``ftz``): its fold reads a subnormal estimate as zero and stores a
+subnormal result as zero, and its thresholds compare a subnormal as zero,
+while a quiet edge's select keeps what it holds.  The port flushes at the
+same places.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .fma import fma
+from .fma import fma, ftz
 
 
 class LossEstimate(NamedTuple):
@@ -41,7 +49,8 @@ def ewma_update(
     miss indicator; quiet edges hold their estimate."""
     miss = (expected & ~observed).to(torch.float32)
     a = float(np.float32(alpha))
-    blended = fma(loss_ewma, float(np.float32(1.0 - alpha)), miss * a)
+    blended = ftz(fma(ftz(loss_ewma), float(np.float32(1.0 - alpha)),
+                      miss * a))
     return torch.where(expected, blended, loss_ewma)
 
 
@@ -53,9 +62,10 @@ def hysteresis_switch(
 ) -> torch.Tensor:
     """Two-threshold mode latch: above ``hi`` -> coded, below ``lo`` ->
     eager, in between -> keep the previous mode."""
-    hi32, lo32 = float(np.float32(hi)), float(np.float32(lo))
-    return torch.where(loss_ewma > hi32, True,
-                       torch.where(loss_ewma < lo32, False, coded))
+    hi32, lo32 = (float(ftz(torch.tensor(np.float32(v)))) for v in (hi, lo))
+    loss = ftz(loss_ewma)
+    return torch.where(loss > hi32, True,
+                       torch.where(loss < lo32, False, coded))
 
 
 def update(

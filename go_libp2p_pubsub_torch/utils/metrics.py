@@ -20,6 +20,8 @@ import numpy as np
 import torch
 
 from ..ops import bitpack
+from ..ops import reduce_order
+from ..ops.fma import ftz
 from ..ops.histogram import hist_quantile
 
 
@@ -61,6 +63,16 @@ def reduce_tree_metrics(m: Dict[str, torch.Tensor],
     return {k: whole.get(k, m[k]) for k in m}
 
 
+def _nanmean(a: torch.Tensor) -> torch.Tensor:
+    """``jnp.nanmean`` of an f32 tensor as the reference's XLA CPU backend
+    computes it: the non-NaN entries summed in XLA's order
+    (``reduce_order.xla_sum``), over their count in f32, flushed (NaN when
+    there are none)."""
+    keep = ~torch.isnan(a)
+    total = reduce_order.xla_sum(torch.where(keep, a, 0.0))
+    return ftz(total / keep.sum(dtype=torch.int32).to(torch.float32))
+
+
 def gossip_metrics(st) -> Dict[str, torch.Tensor]:
     """Reductions over a ``GossipState``: mesh health, delivery, scores."""
     alive = st.alive
@@ -77,10 +89,10 @@ def gossip_metrics(st) -> Dict[str, torch.Tensor]:
             dtype=torch.int32) / alive_n,
         "mesh_degree_max": mesh_deg.max(),
         "msgs_in_window": in_window.sum(dtype=torch.int32),
-        "delivery_frac_mean": torch.nanmean(frac),
+        "delivery_frac_mean": _nanmean(frac),
         "deliveries_total": (
             have & alive[:, None] & in_window[None, :]).sum(dtype=torch.int32),
-        "score_mean": torch.nanmean(scores_live),
+        "score_mean": _nanmean(scores_live),
         "score_min": torch.where(torch.isnan(scores_live), torch.inf,
                                  scores_live).min(),
         "gossip_pending": bitpack.popcount(st.gossip_pend_w).sum(
