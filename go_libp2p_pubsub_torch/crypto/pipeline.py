@@ -25,6 +25,7 @@ import numpy as np
 
 from . import ed25519_ref
 from ..obs.spans import envelope_span_key
+from ..utils.trace import span
 
 Backend = Literal["native", "device", "python"]
 
@@ -181,69 +182,70 @@ class ValidationPipeline:
         return [e for e, _ in dropped]
 
     def flush(self) -> List[Tuple[Envelope, bool]]:
-        if not self._pending:
-            return []
-        pairs, self._pending = self._pending, []
-        batch = [e for e, _ in pairs]
-        # Structural screen BEFORE the backend call: a truncated/oversized key
-        # or signature (attacker-crafted wire bytes) gets a False verdict —
-        # it must not raise out of the batched backends and drop everyone
-        # else's verdicts with it.
-        well_formed = [
-            len(e.pubkey) == 32 and len(e.signature) == 64 for e in batch
-        ]
-        good = [e for e, w in zip(batch, well_formed) if w]
-        t_v0 = time.monotonic()
-        try:
-            verdicts = (
-                _BACKENDS[self.backend](
-                    [e.pubkey for e in good],
-                    [signing_bytes(e.topic, e.seqno, e.payload) for e in good],
-                    [e.signature for e in good],
-                    self.device,
+        with span("validate.flush"):
+            if not self._pending:
+                return []
+            pairs, self._pending = self._pending, []
+            batch = [e for e, _ in pairs]
+            # Structural screen BEFORE the backend call: a truncated/oversized key
+            # or signature (attacker-crafted wire bytes) gets a False verdict —
+            # it must not raise out of the batched backends and drop everyone
+            # else's verdicts with it.
+            well_formed = [
+                len(e.pubkey) == 32 and len(e.signature) == 64 for e in batch
+            ]
+            good = [e for e, w in zip(batch, well_formed) if w]
+            t_v0 = time.monotonic()
+            try:
+                verdicts = (
+                    _BACKENDS[self.backend](
+                        [e.pubkey for e in good],
+                        [signing_bytes(e.topic, e.seqno, e.payload) for e in good],
+                        [e.signature for e in good],
+                        self.device,
+                    )
+                    if good
+                    else []
                 )
-                if good
-                else []
+            except Exception:
+                # Backend failure (no card, native build unavailable): re-queue
+                # the batch so no envelope silently loses its verdict, then
+                # propagate so the caller can pick another backend.
+                self._pending = pairs + self._pending
+                raise
+            verify_s = time.monotonic() - t_v0
+            oks_good = iter(verdicts)
+            oks = np.array(
+                [bool(next(oks_good)) if w else False for w in well_formed], bool
             )
-        except Exception:
-            # Backend failure (no card, native build unavailable): re-queue
-            # the batch so no envelope silently loses its verdict, then
-            # propagate so the caller can pick another backend.
-            self._pending = pairs + self._pending
-            raise
-        verify_s = time.monotonic() - t_v0
-        oks_good = iter(verdicts)
-        oks = np.array(
-            [bool(next(oks_good)) if w else False for w in well_formed], bool
-        )
-        out = list(zip(batch, (bool(o) for o in oks)))
-        self.stats["validated"] += len(batch)
-        self.stats["accepted"] += int(np.sum(oks))
-        self.stats["rejected"] += len(batch) - int(np.sum(oks))
-        if self.metrics is not None:
-            self.metrics.inc("crypto.pipeline.validated", len(batch))
-            self.metrics.inc("crypto.pipeline.accepted", int(np.sum(oks)))
-            self.metrics.inc(
-                "crypto.pipeline.rejected", len(batch) - int(np.sum(oks))
-            )
-            self.metrics.gauge("crypto.pipeline.verify_s", verify_s)
-            self.metrics.gauge("crypto.pipeline.batch", len(batch))
-        if self.tracer is not None:
-            for (env, ctx), ok in zip(pairs, oks):
-                key = envelope_span_key(env.payload, ctx)
-                if key is not None:
-                    self.tracer.stamp(key, "verify_verdict", ok=bool(ok))
-                    if not ok:
-                        # A rejected envelope never publishes: its span
-                        # ends here, explicitly, instead of dangling open.
-                        self.tracer.close(key, status="rejected")
-        if self.on_verdict is not None:
-            for env, ok in out:
-                self.on_verdict(env, ok)
-        if self.on_verdict_ctx is not None:
-            for (env, ctx), ok in zip(pairs, (bool(o) for o in oks)):
-                self.on_verdict_ctx(env, ok, ctx)
-        return out
+            out = list(zip(batch, (bool(o) for o in oks)))
+            self.stats["validated"] += len(batch)
+            self.stats["accepted"] += int(np.sum(oks))
+            self.stats["rejected"] += len(batch) - int(np.sum(oks))
+            if self.metrics is not None:
+                self.metrics.inc("crypto.pipeline.validated", len(batch))
+                self.metrics.inc("crypto.pipeline.accepted", int(np.sum(oks)))
+                self.metrics.inc(
+                    "crypto.pipeline.rejected", len(batch) - int(np.sum(oks))
+                )
+                self.metrics.gauge("crypto.pipeline.verify_s", verify_s)
+                self.metrics.gauge("crypto.pipeline.batch", len(batch))
+            if self.tracer is not None:
+                for (env, ctx), ok in zip(pairs, oks):
+                    key = envelope_span_key(env.payload, ctx)
+                    if key is not None:
+                        self.tracer.stamp(key, "verify_verdict", ok=bool(ok))
+                        if not ok:
+                            # A rejected envelope never publishes: its span
+                            # ends here, explicitly, instead of dangling open.
+                            self.tracer.close(key, status="rejected")
+            if self.on_verdict is not None:
+                for env, ok in out:
+                    self.on_verdict(env, ok)
+            if self.on_verdict_ctx is not None:
+                for (env, ctx), ok in zip(pairs, (bool(o) for o in oks)):
+                    self.on_verdict_ctx(env, ok, ctx)
+            return out
 
 
 def verify_envelopes(

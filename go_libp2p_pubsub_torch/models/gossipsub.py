@@ -86,6 +86,7 @@ from ..ops.px import px_rewire
 from ..ops.schedule import GossipEvents
 from ..ops.scoring import GlobalCounters, TopicCounters, segment_sum
 from ..parallel.mesh import shard_state
+from ..utils.trace import span
 
 FLIGHT_HIST_BINS = 32
 _AGE_CAP = (2**31 - 1) // 2
@@ -735,92 +736,96 @@ class GossipSub:
         one integer all-reduce MAX (-1 from the others), and each rank
         writes the offered copies into the targets it owns.  The [M]
         metadata updates alike on every rank."""
-        p, sp = self.params, self.score_params
-        pm = self.peer_mesh
-        n, k, b, dev = self.n, self.k, self.nl, self.device
-        src, slot = int(src), int(slot)
-        # The publisher's local row, None on a rank that does not own it.
-        ls = src - self.row0 if 0 <= src - self.row0 < b else None
-        (have_w, fresh_w, pend_w, iwant_pend_w, first_step,
-         mv, mb, ma, mu) = seed_message(
-            st.have_w, st.fresh_w, st.gossip_pend_w, st.iwant_pend_w,
-            st.first_step, st.msg_valid, st.msg_birth, st.msg_active,
-            st.msg_used, ls, slot, valid, st.step,
-        )
-        kpub, knext = rng.split(st.key, 2).unbind(0)
-        fanout, fanout_age = st.fanout, st.fanout_age
-        ids = torch.full((k,), -1, dtype=torch.int32, device=dev)
-        if ls is not None:
-            eligible = (
-                st.edge_live[ls]
-                & st.nbr_sub[ls]
-                & (st.scores[ls] >= sp.publish_threshold)
+        with span("publish", st.step):
+            p, sp = self.params, self.score_params
+            pm = self.peer_mesh
+            n, k, b, dev = self.n, self.k, self.nl, self.device
+            src, slot = int(src), int(slot)
+            # The publisher's local row, None on a rank that does not own it.
+            ls = src - self.row0 if 0 <= src - self.row0 < b else None
+            (have_w, fresh_w, pend_w, iwant_pend_w, first_step,
+             mv, mb, ma, mu) = seed_message(
+                st.have_w, st.fresh_w, st.gossip_pend_w, st.iwant_pend_w,
+                st.first_step, st.msg_valid, st.msg_birth, st.msg_active,
+                st.msg_used, ls, slot, valid, st.step,
             )
-            # Direct peers are covered by the always-forward path; go's
-            # Publish never selects them into flood/fanout targets.
-            if self.direct_edges is not None:
-                eligible = eligible & ~self.direct_edges[ls]
-            if p.flood_publish:
-                targets = eligible
-            else:
-                cur = st.fanout[ls] & eligible
-                want = torch.clamp(p.d - cur.sum(), 0, p.d).to(torch.int32)
-                r = rng.uniform(kpub, (1, k))
-                add = top_mask(
-                    torch.where((eligible & ~cur)[None, :], r, -torch.inf),
-                    want[None], kmax=p.d,
-                )[0]
-                newf = cur | add
-                is_sub = st.subscribed[ls]
-                targets = torch.where(is_sub, False, newf)
-                fanout = st.fanout.clone()
-                fanout[ls] = torch.where(is_sub, st.fanout[ls], newf)
-                fanout_age = st.fanout_age.clone()
-                fanout_age[ls] = torch.where(is_sub, st.fanout_age[ls], 0)
-            ids = torch.where(targets, decode_index_plane(st.nbrs[ls]), n)
-        # Offered copies land next round through the pend fold; valid-only.
-        # A receiver with ingress latency arms its hold only when idle and
-        # empty, and only when a bit was actually placed.
-        word, bit = divmod(slot, bitpack.WORD)
-        bm = torch.zeros(self.w, dtype=torch.int32, device=dev)
-        if isinstance(valid, torch.Tensor):
-            valid = valid.to(device=dev, dtype=torch.bool)
-            bm[word] = torch.where(valid, bitpack.as_int32_bits(1 << bit), 0)
-        elif valid:
-            bm[word].fill_(bitpack.as_int32_bits(1 << bit))
-        # Target rows of this rank's block; row b (dropped) elsewhere.
-        if pm is None:
-            rows = ids.long()
-        else:
-            loc = pm.max(ids.to(torch.int32)).long() - self.row0
-            rows = torch.where((loc >= 0) & (loc < b), loc, b)
-        rows_c = torch.clamp(rows, 0, b - 1)
-        gathered = pend_w[rows_c]                                # [K, W]
-        ext = torch.cat([pend_w, pend_w.new_zeros((1, self.w))])
-        ext[rows] = gathered | bm[None, :]
-        pend_w = ext[:b]
-        cur_hold = st.pend_hold[rows_c]
-        arm = (cur_hold <= 0) & (gathered == 0).all(dim=-1) & valid
-        hold_ext = torch.cat([st.pend_hold, st.pend_hold.new_zeros(1)])
-        hold_ext[rows] = torch.where(arm, st.gossip_delay[rows_c], cur_hold)
-        # Per-edge delay: the history mirrors fresh_w's mutations -- the
-        # recycled slot leaves every plane and the publisher's bit enters
-        # the plane delay-0 edges read next round (valid or not).
-        fresh_hist = st.fresh_hist
-        if self.max_edge_delay:
-            cur = (st.step - 1) % (self.max_edge_delay + 1)
-            fresh_hist = fresh_hist.clone()
-            fresh_hist[:, :, word] &= ~bitpack.as_int32_bits(1 << bit)
+            kpub, knext = rng.split(st.key, 2).unbind(0)
+            fanout, fanout_age = st.fanout, st.fanout_age
+            ids = torch.full((k,), -1, dtype=torch.int32, device=dev)
             if ls is not None:
-                fresh_hist[ls, cur, word] |= bitpack.as_int32_bits(1 << bit)
-        return st._replace(
-            have_w=have_w, fresh_w=fresh_w, gossip_pend_w=pend_w,
-            iwant_pend_w=iwant_pend_w, pend_hold=hold_ext[:b],
-            fresh_hist=fresh_hist,
-            first_step=first_step, msg_valid=mv, msg_birth=mb,
-            msg_active=ma, msg_used=mu, fanout=fanout,
-            fanout_age=fanout_age, key=knext,
-        )
+                eligible = (
+                    st.edge_live[ls]
+                    & st.nbr_sub[ls]
+                    & (st.scores[ls] >= sp.publish_threshold)
+                )
+                # Direct peers are covered by the always-forward path; go's
+                # Publish never selects them into flood/fanout targets.
+                if self.direct_edges is not None:
+                    eligible = eligible & ~self.direct_edges[ls]
+                if p.flood_publish:
+                    targets = eligible
+                else:
+                    cur = st.fanout[ls] & eligible
+                    want = torch.clamp(p.d - cur.sum(), 0, p.d).to(torch.int32)
+                    r = rng.uniform(kpub, (1, k))
+                    add = top_mask(
+                        torch.where((eligible & ~cur)[None, :], r, -torch.inf),
+                        want[None], kmax=p.d,
+                    )[0]
+                    newf = cur | add
+                    is_sub = st.subscribed[ls]
+                    targets = torch.where(is_sub, False, newf)
+                    fanout = st.fanout.clone()
+                    fanout[ls] = torch.where(is_sub, st.fanout[ls], newf)
+                    fanout_age = st.fanout_age.clone()
+                    fanout_age[ls] = torch.where(is_sub, st.fanout_age[ls], 0)
+                ids = torch.where(targets, decode_index_plane(st.nbrs[ls]), n)
+            # Offered copies land next round through the pend fold; valid-only.
+            # A receiver with ingress latency arms its hold only when idle and
+            # empty, and only when a bit was actually placed.
+            word, bit = divmod(slot, bitpack.WORD)
+            bm = torch.zeros(self.w, dtype=torch.int32, device=dev)
+            if isinstance(valid, torch.Tensor):
+                valid = valid.to(device=dev, dtype=torch.bool)
+                bm[word] = torch.where(
+                    valid, bitpack.as_int32_bits(1 << bit), 0)
+            elif valid:
+                bm[word].fill_(bitpack.as_int32_bits(1 << bit))
+            # Target rows of this rank's block; row b (dropped) elsewhere.
+            if pm is None:
+                rows = ids.long()
+            else:
+                loc = pm.max(ids.to(torch.int32)).long() - self.row0
+                rows = torch.where((loc >= 0) & (loc < b), loc, b)
+            rows_c = torch.clamp(rows, 0, b - 1)
+            gathered = pend_w[rows_c]                                # [K, W]
+            ext = torch.cat([pend_w, pend_w.new_zeros((1, self.w))])
+            ext[rows] = gathered | bm[None, :]
+            pend_w = ext[:b]
+            cur_hold = st.pend_hold[rows_c]
+            arm = (cur_hold <= 0) & (gathered == 0).all(dim=-1) & valid
+            hold_ext = torch.cat([st.pend_hold, st.pend_hold.new_zeros(1)])
+            hold_ext[rows] = torch.where(
+                arm, st.gossip_delay[rows_c], cur_hold)
+            # Per-edge delay: the history mirrors fresh_w's mutations -- the
+            # recycled slot leaves every plane and the publisher's bit enters
+            # the plane delay-0 edges read next round (valid or not).
+            fresh_hist = st.fresh_hist
+            if self.max_edge_delay:
+                cur = (st.step - 1) % (self.max_edge_delay + 1)
+                fresh_hist = fresh_hist.clone()
+                fresh_hist[:, :, word] &= ~bitpack.as_int32_bits(1 << bit)
+                if ls is not None:
+                    fresh_hist[ls, cur, word] |= bitpack.as_int32_bits(
+                        1 << bit)
+            return st._replace(
+                have_w=have_w, fresh_w=fresh_w, gossip_pend_w=pend_w,
+                iwant_pend_w=iwant_pend_w, pend_hold=hold_ext[:b],
+                fresh_hist=fresh_hist,
+                first_step=first_step, msg_valid=mv, msg_birth=mb,
+                msg_active=ma, msg_used=mu, fanout=fanout,
+                fanout_age=fanout_age, key=knext,
+            )
 
     def _local(self, x, dtype=None) -> torch.Tensor:
         """A per-peer argument (bool[N] mask, int32[N] delays, [N, K]
@@ -959,277 +964,301 @@ class GossipSub:
         return torch.where(factive[:, None], fkeep | fadd, False), age
 
     def _heartbeat(self, st: GossipState) -> GossipState:
+        with span("round.heartbeat", st.step):
+            return self._heartbeat_parts(st)
+
+    def _heartbeat_parts(self, st: GossipState) -> GossipState:
+        # Each part is a span of its own: the parts ``profile_rollout
+        # --phases`` re-runs alone (hb_scores ... hb_fanout).
         p, sp = self.params, self.score_params
         n, k = self.n, self.k
         pm = self.peer_mesh
         khb, kgossip, kiwant, kfan, kpx, knext = rng.split(st.key, 6).unbind(0)
 
-        # Fused prologue: one clipped (jidx, ridx) pair shared by scores,
-        # mesh and PX; px_rewire reuses heartbeat_mesh's bitfield gather.
-        # A rank of the sharded rollout always clips here, to the global N.
-        edge_idx = (
-            (torch.clamp(st.nbrs, 0, n - 1), torch.clamp(st.rev, 0, k - 1))
-            if self.fused_prologue or pm is not None else None
-        )
-
-        c = scoring_ops.tick_mesh_clocks(
-            st.counters, st.mesh, p.heartbeat_interval_s)
-        c = scoring_ops.decay_topic_counters(c, sp)
-        g = scoring_ops.decay_global_counters(st.gcounters, sp)
-        scores = scoring_ops.neighbor_scores(
-            c, g, st.nbrs, st.nbr_valid, sp,
-            jidx=None if edge_idx is None else edge_idx[0], pm=pm,
-        )
-
-        part = st.alive & st.subscribed
-        edge_ok = st.edge_live & st.nbr_sub
-        # Direct edges never join the mesh and carry no IHAVE/IWANT.
-        if self.direct_edges is not None:
-            edge_ok = edge_ok & ~self.direct_edges
-        hb_idx = st.step // self.heartbeat_steps
-        do_og = (hb_idx % p.opportunistic_graft_ticks) == 0
-
-        hb_out = heartbeat_mesh(
-            khb, st.mesh, scores, st.nbrs, st.rev, edge_ok, part, p,
-            st.backoff, st.outbound, do_og,
-            og_threshold=sp.opportunistic_graft_threshold,
-            ignore_backoff=self.graft_spammers,
-            uid=self._uid,
-            edge_idx=edge_idx,
-            with_px_offer=self.fused_prologue,
-            pm=pm,
-        )
-        new_mesh, grafted, pruned, backoff, bo_violations = hb_out[:5]
-        px_offer_ok = hb_out[5] if self.fused_prologue else None
-        c = scoring_ops.on_prune(c, pruned, sp)
-        c = scoring_ops.on_graft(c, grafted)
-        g = g._replace(behaviour_penalty=g.behaviour_penalty + bo_violations)
-
-        px = px_rewire(
-            kpx, st.nbrs, st.rev, st.nbr_valid, st.outbound, backoff,
-            new_mesh, pruned, scores, st.alive, sp.accept_px_threshold,
-            uid=self._uid,
-            edge_idx=edge_idx,
-            offer_ok=px_offer_ok,
-            pm=pm,
-        )
-        # The reference refreshes the adjacency caches under lax.cond when a
-        # PX edge formed anywhere; both branches agree otherwise.
-        rewired = px.connected.any() if pm is None else pm.any(px.connected)
-        edge_live = torch.where(
-            rewired, self._edge_live(px.nbr_valid, px.nbrs, st.alive),
-            st.edge_live)
-        nbr_sub = torch.where(
-            rewired,
-            px.nbr_valid & self._safe_gather(st.subscribed, px.nbrs, False),
-            st.nbr_sub)
-
-        have_w, gossip_w = self.gossip_window_masks(st)
-
-        # IHAVE/IWANT collapsed at the heartbeat: grants land two rounds
-        # later through iwant_pend_w -> gossip_pend_w.  Self-promoters
-        # advertise only ids they originated.
-        serve_ok = ~self._safe_gather(st.gossip_mute, px.nbrs, True)
-        gossip_edges = edge_live & nbr_sub
-        if self.direct_edges is not None:
-            gossip_edges = gossip_edges & ~self.direct_edges
-        origin = bitpack.pack(
-            (st.first_step == st.msg_birth[None, :]) & st.msg_used[None, :])
-        adv_src = torch.where(
-            st.self_promo[:, None], st.have_w & origin, st.have_w)
-        # gossip_packed.gossip_exchange_packed with its select run by K2.
-        x = exchange_prep(
-            kgossip, kiwant, adv_src, new_mesh, px.nbrs, px.rev,
-            gossip_edges, part, scores, gossip_w, p, sp.gossip_threshold,
-            serve_ok, uid=self._uid, pm=pm,
-        )
-        if pm is None:
-            iwant_pend_w, broken_p = cuda_gossip.exchange_select(
-                x.jidx_p, x.adv_ok_p, x.accept_p, x.serve_p, x.rows, have_w,
-                part, p.max_ihave_length, p.max_iwant_length,
+        with span("heartbeat.scores", st.step):
+            # Fused prologue: one clipped (jidx, ridx) pair shared by
+            # scores, mesh and PX; px_rewire reuses heartbeat_mesh's
+            # bitfield gather.  A rank of the sharded rollout always clips
+            # here, to the global N.
+            edge_idx = (
+                (torch.clamp(st.nbrs, 0, n - 1),
+                 torch.clamp(st.rev, 0, k - 1))
+                if self.fused_prologue or pm is not None else None
             )
-        else:
-            iwant_pend_w, broken_p = cuda_gossip.exchange_select_sharded(
-                pm, x.jidx_p, x.adv_ok_p, x.accept_p, x.serve_p, x.rows,
-                have_w, part, p.max_ihave_length, p.max_iwant_length,
+
+            c = scoring_ops.tick_mesh_clocks(
+                st.counters, st.mesh, p.heartbeat_interval_s)
+            c = scoring_ops.decay_topic_counters(c, sp)
+            g = scoring_ops.decay_global_counters(st.gcounters, sp)
+            scores = scoring_ops.neighbor_scores(
+                c, g, st.nbrs, st.nbr_valid, sp,
+                jidx=None if edge_idx is None else edge_idx[0], pm=pm,
             )
-        broken = broken_p.gather(1, x.inv.long())
-        # P7: broken promises charge the advertiser (by remote id).
-        promise_ids = torch.where(px.nbr_valid, px.nbrs, n).reshape(-1)
-        if pm is None:
-            promise_viol = segment_sum(
-                broken.reshape(-1), promise_ids, n + 1)[:n]
-        else:
-            # The counts are whole numbers: an integer scatter onto the
-            # advertisers' rows, added over the ranks, is the float
-            # segment_sum bit for bit.
-            counts = torch.zeros(n + 1, dtype=torch.int32, device=self.device)
-            counts.index_add_(0, promise_ids.long(),
-                              broken.reshape(-1).to(torch.int32))
-            promise_viol = pm.local(pm.sum(counts)[:n]).to(torch.float32)
-        g = g._replace(behaviour_penalty=g.behaviour_penalty + promise_viol)
 
-        # Fanout excludes direct edges (go's getPeers filter).
-        fanout_edges = edge_live & nbr_sub
-        if self.direct_edges is not None:
-            fanout_edges = fanout_edges & ~self.direct_edges
-        fanout, age = self.fanout_maintenance(
-            kfan, st.fanout, st.fanout_age, st.subscribed, st.alive,
-            fanout_edges, scores,
-        )
+        with span("heartbeat.mesh", st.step):
+            part = st.alive & st.subscribed
+            edge_ok = st.edge_live & st.nbr_sub
+            # Direct edges never join the mesh and carry no IHAVE/IWANT.
+            if self.direct_edges is not None:
+                edge_ok = edge_ok & ~self.direct_edges
+            hb_idx = st.step // self.heartbeat_steps
+            do_og = (hb_idx % p.opportunistic_graft_ticks) == 0
 
-        expired = st.msg_active & (
-            st.step - st.msg_birth > p.history_length * self.heartbeat_steps
-        )
-        dead_w = bitpack.pack(expired)
-        return st._replace(
-            nbrs=px.nbrs,
-            rev=px.rev,
-            nbr_valid=px.nbr_valid,
-            outbound=px.outbound,
-            edge_live=edge_live,
-            nbr_sub=nbr_sub,
-            mesh=new_mesh,
-            fanout=fanout,
-            fanout_age=age,
-            backoff=px.backoff,
-            counters=c,
-            gcounters=g,
-            scores=scores,
-            have_w=have_w,
-            gossip_pend_w=st.gossip_pend_w & ~dead_w[None, :],
-            iwant_pend_w=iwant_pend_w,
-            msg_active=st.msg_active & ~expired,
-            key=knext,
-        )
+            hb_out = heartbeat_mesh(
+                khb, st.mesh, scores, st.nbrs, st.rev, edge_ok, part, p,
+                st.backoff, st.outbound, do_og,
+                og_threshold=sp.opportunistic_graft_threshold,
+                ignore_backoff=self.graft_spammers,
+                uid=self._uid,
+                edge_idx=edge_idx,
+                with_px_offer=self.fused_prologue,
+                pm=pm,
+            )
+            new_mesh, grafted, pruned, backoff, bo_violations = hb_out[:5]
+            px_offer_ok = hb_out[5] if self.fused_prologue else None
+            c = scoring_ops.on_prune(c, pruned, sp)
+            c = scoring_ops.on_graft(c, grafted)
+            g = g._replace(
+                behaviour_penalty=g.behaviour_penalty + bo_violations)
+
+        with span("heartbeat.px", st.step):
+            px = px_rewire(
+                kpx, st.nbrs, st.rev, st.nbr_valid, st.outbound, backoff,
+                new_mesh, pruned, scores, st.alive, sp.accept_px_threshold,
+                uid=self._uid,
+                edge_idx=edge_idx,
+                offer_ok=px_offer_ok,
+                pm=pm,
+            )
+            # The reference refreshes the adjacency caches under lax.cond
+            # when a PX edge formed anywhere; both branches agree otherwise.
+            rewired = (px.connected.any() if pm is None
+                       else pm.any(px.connected))
+            edge_live = torch.where(
+                rewired, self._edge_live(px.nbr_valid, px.nbrs, st.alive),
+                st.edge_live)
+            nbr_sub = torch.where(
+                rewired,
+                px.nbr_valid
+                & self._safe_gather(st.subscribed, px.nbrs, False),
+                st.nbr_sub)
+
+        with span("heartbeat.gossip", st.step):
+            have_w, gossip_w = self.gossip_window_masks(st)
+
+            # IHAVE/IWANT collapsed at the heartbeat: grants land two
+            # rounds later through iwant_pend_w -> gossip_pend_w.
+            # Self-promoters advertise only ids they originated.
+            serve_ok = ~self._safe_gather(st.gossip_mute, px.nbrs, True)
+            gossip_edges = edge_live & nbr_sub
+            if self.direct_edges is not None:
+                gossip_edges = gossip_edges & ~self.direct_edges
+            origin = bitpack.pack(
+                (st.first_step == st.msg_birth[None, :])
+                & st.msg_used[None, :])
+            adv_src = torch.where(
+                st.self_promo[:, None], st.have_w & origin, st.have_w)
+            # gossip_packed.gossip_exchange_packed with its select run by
+            # K2.
+            x = exchange_prep(
+                kgossip, kiwant, adv_src, new_mesh, px.nbrs, px.rev,
+                gossip_edges, part, scores, gossip_w, p, sp.gossip_threshold,
+                serve_ok, uid=self._uid, pm=pm,
+            )
+            if pm is None:
+                iwant_pend_w, broken_p = cuda_gossip.exchange_select(
+                    x.jidx_p, x.adv_ok_p, x.accept_p, x.serve_p, x.rows,
+                    have_w, part, p.max_ihave_length, p.max_iwant_length,
+                )
+            else:
+                iwant_pend_w, broken_p = cuda_gossip.exchange_select_sharded(
+                    pm, x.jidx_p, x.adv_ok_p, x.accept_p, x.serve_p, x.rows,
+                    have_w, part, p.max_ihave_length, p.max_iwant_length,
+                )
+            broken = broken_p.gather(1, x.inv.long())
+            # P7: broken promises charge the advertiser (by remote id).
+            promise_ids = torch.where(px.nbr_valid, px.nbrs, n).reshape(-1)
+            if pm is None:
+                promise_viol = segment_sum(
+                    broken.reshape(-1), promise_ids, n + 1)[:n]
+            else:
+                # The counts are whole numbers: an integer scatter onto the
+                # advertisers' rows, added over the ranks, is the float
+                # segment_sum bit for bit.
+                counts = torch.zeros(n + 1, dtype=torch.int32,
+                                     device=self.device)
+                counts.index_add_(0, promise_ids.long(),
+                                  broken.reshape(-1).to(torch.int32))
+                promise_viol = pm.local(pm.sum(counts)[:n]).to(torch.float32)
+            g = g._replace(
+                behaviour_penalty=g.behaviour_penalty + promise_viol)
+
+        with span("heartbeat.fanout", st.step):
+            # Fanout excludes direct edges (go's getPeers filter).
+            fanout_edges = edge_live & nbr_sub
+            if self.direct_edges is not None:
+                fanout_edges = fanout_edges & ~self.direct_edges
+            fanout, age = self.fanout_maintenance(
+                kfan, st.fanout, st.fanout_age, st.subscribed, st.alive,
+                fanout_edges, scores,
+            )
+
+            expired = st.msg_active & (
+                st.step - st.msg_birth
+                > p.history_length * self.heartbeat_steps
+            )
+            dead_w = bitpack.pack(expired)
+            return st._replace(
+                nbrs=px.nbrs,
+                rev=px.rev,
+                nbr_valid=px.nbr_valid,
+                outbound=px.outbound,
+                edge_live=edge_live,
+                nbr_sub=nbr_sub,
+                mesh=new_mesh,
+                fanout=fanout,
+                fanout_age=age,
+                backoff=px.backoff,
+                counters=c,
+                gcounters=g,
+                scores=scores,
+                have_w=have_w,
+                gossip_pend_w=st.gossip_pend_w & ~dead_w[None, :],
+                iwant_pend_w=iwant_pend_w,
+                msg_active=st.msg_active & ~expired,
+                key=knext,
+            )
 
     def _propagate(self, st: GossipState, with_receipts: bool = False,
                    eager_edge_ok: Optional[torch.Tensor] = None,
                    ingress_ok: Optional[torch.Tensor] = None):
-        # Fold due gossip/flood transfers into this round's receipts (they
-        # relay next round), then the eager push over the graylist-gated
-        # mesh (kernel K1 on CUDA).
-        #
-        # The hybrid's hooks (models/hybrid.py), where the reference places
-        # them: ``eager_edge_ok`` bool[N, K] narrows the relay mask K1 reads
-        # (coded edges do not eager-push); ``ingress_ok`` bool[N] is a
-        # per-receiver loss gate that drops a closed receiver's whole
-        # data-plane ingress (the pend fold and K1's arrivals, which are
-        # masked after the kernel).  Both None: the operations of the plain
-        # model.
-        ready = st.pend_hold <= 0
-        ready_w = as_mask(ready)[:, None]
-        gossip_new = (
-            st.gossip_pend_w & ready_w & ~st.have_w & as_mask(st.alive)[:, None]
-        )
-        if ingress_ok is not None:
-            gossip_new = gossip_new & as_mask(ingress_ok)[:, None]
-        held_w = st.gossip_pend_w & ~ready_w
-        have_w = st.have_w | gossip_new
+        with span("round.propagate", st.step):
+            # Fold due gossip/flood transfers into this round's receipts (they
+            # relay next round), then the eager push over the graylist-gated
+            # mesh (kernel K1 on CUDA).
+            #
+            # The hybrid's hooks (models/hybrid.py), where the reference
+            # places them: ``eager_edge_ok`` bool[N, K] narrows the relay
+            # mask K1 reads (coded edges do not eager-push); ``ingress_ok``
+            # bool[N] is a per-receiver loss gate that drops a closed
+            # receiver's whole data-plane ingress (the pend fold and K1's
+            # arrivals, which are masked after the kernel).  Both None: the
+            # operations of the plain model.
+            ready = st.pend_hold <= 0
+            ready_w = as_mask(ready)[:, None]
+            gossip_new = (
+                st.gossip_pend_w & ready_w & ~st.have_w
+                & as_mask(st.alive)[:, None]
+            )
+            if ingress_ok is not None:
+                gossip_new = gossip_new & as_mask(ingress_ok)[:, None]
+            held_w = st.gossip_pend_w & ~ready_w
+            have_w = st.have_w | gossip_new
 
-        relay_mesh = st.mesh & (
-            st.scores >= self.score_params.graylist_threshold)
-        # Direct edges always relay (graylist bypass, mesh-independent),
-        # gated by the RECEIVER's subscription (relay_mesh is receiver-
-        # indexed); K1 still masks dead remotes through edge_live.
-        if self.direct_edges is not None:
-            relay_mesh = relay_mesh | (
-                self.direct_edges & st.subscribed[:, None])
-        if eager_edge_ok is not None:
-            relay_mesh = relay_mesh & eager_edge_ok
-        valid_w = bitpack.pack(st.msg_valid & st.msg_active)
-        # Per-edge delay: each edge reads its sender's fresh plane from
-        # edge_delay rounds back, (step - 1 - d) mod D of the history.
-        dpl = self.max_edge_delay + 1
-        fresh_src = None
-        if self.max_edge_delay:
-            jrows = torch.clamp(st.nbrs, 0, self.n - 1)
-            plane = torch.remainder(st.step - 1 - st.edge_delay, dpl)
-            hist_rows = st.fresh_hist.reshape(self.nl * dpl, self.w)
+            relay_mesh = st.mesh & (
+                st.scores >= self.score_params.graylist_threshold)
+            # Direct edges always relay (graylist bypass, mesh-independent),
+            # gated by the RECEIVER's subscription (relay_mesh is receiver-
+            # indexed); K1 still masks dead remotes through edge_live.
+            if self.direct_edges is not None:
+                relay_mesh = relay_mesh | (
+                    self.direct_edges & st.subscribed[:, None])
+            if eager_edge_ok is not None:
+                relay_mesh = relay_mesh & eager_edge_ok
+            valid_w = bitpack.pack(st.msg_valid & st.msg_active)
+            # Per-edge delay: each edge reads its sender's fresh plane from
+            # edge_delay rounds back, (step - 1 - d) mod D of the history.
+            dpl = self.max_edge_delay + 1
+            fresh_src = None
+            if self.max_edge_delay:
+                jrows = torch.clamp(st.nbrs, 0, self.n - 1)
+                plane = torch.remainder(st.step - 1 - st.edge_delay, dpl)
+                hist_rows = st.fresh_hist.reshape(self.nl * dpl, self.w)
+                if self.peer_mesh is None:
+                    fresh_src = hist_rows[(jrows * dpl + plane).long()]
+                else:  # a sender's D planes are contiguous rows of its rank's
+                    fresh_src = self.peer_mesh.gather(
+                        hist_rows, jrows.long() * dpl + plane)
+            # IDONTWANT suppression sees the receiver's pre-fold possession;
+            # the reference turns it off under per-edge delay.
+            idontwant = self.params.idontwant and not self.max_edge_delay
+            idw = st.have_w if idontwant else None
+            if idontwant and self.params.idontwant_wire_lag:
+                idw = st.have_w & ~st.fresh_w
             if self.peer_mesh is None:
-                fresh_src = hist_rows[(jrows * dpl + plane).long()]
-            else:  # a sender's D planes are contiguous rows of its rank's
-                fresh_src = self.peer_mesh.gather(
-                    hist_rows, jrows.long() * dpl + plane)
-        # IDONTWANT suppression sees the receiver's pre-fold possession; the
-        # reference turns it off under per-edge delay.
-        idontwant = self.params.idontwant and not self.max_edge_delay
-        idw = st.have_w if idontwant else None
-        if idontwant and self.params.idontwant_wire_lag:
-            idw = st.have_w & ~st.fresh_w
-        if self.peer_mesh is None:
-            out = cuda_gossip.propagate(
-                relay_mesh, st.nbrs, st.edge_live, st.alive, have_w,
-                st.fresh_w, valid_w, fresh_src=fresh_src, idontwant=idontwant,
-                idw_have_w=idw,
+                out = cuda_gossip.propagate(
+                    relay_mesh, st.nbrs, st.edge_live, st.alive, have_w,
+                    st.fresh_w, valid_w, fresh_src=fresh_src,
+                    idontwant=idontwant, idw_have_w=idw,
+                )
+            else:
+                out = cuda_gossip.propagate_sharded(
+                    self.peer_mesh, relay_mesh, st.nbrs, st.edge_live,
+                    st.alive, have_w, st.fresh_w, valid_w, fresh_src=fresh_src,
+                    idontwant=idontwant, idw_have_w=idw,
+                )
+            if ingress_ok is not None:
+                # A closed receiver's eager arrivals are dropped: no
+                # possession, no relay, no score credit.  ``have_w`` going
+                # into K1 already holds the gated pend fold, so possession
+                # rebuilds exactly.
+                iok_w = as_mask(ingress_ok)[:, None]
+                iok_f = ingress_ok.to(torch.float32)[:, None]
+                out = out._replace(
+                    have_w=have_w | (out.new_w & iok_w & valid_w),
+                    fresh_w=out.fresh_w & iok_w,
+                    new_w=out.new_w & iok_w,
+                    fmd_inc=out.fmd_inc * iok_f,
+                    mmd_inc=out.mmd_inc * iok_f,
+                    invalid_inc=out.invalid_inc * iok_f,
+                )
+            # One stamping pass for both receipt sources (same step).
+            stamped = (
+                bitpack.unpack(gossip_new | out.new_w, self.m)
+                & (st.first_step < 0)
             )
-        else:
-            out = cuda_gossip.propagate_sharded(
-                self.peer_mesh, relay_mesh, st.nbrs, st.edge_live, st.alive,
-                have_w, st.fresh_w, valid_w, fresh_src=fresh_src,
-                idontwant=idontwant, idw_have_w=idw,
+            first_step = torch.where(stamped, st.step, st.first_step)
+            c = st.counters._replace(
+                first_message_deliveries=st.counters.first_message_deliveries
+                + out.fmd_inc,
+                mesh_message_deliveries=st.counters.mesh_message_deliveries
+                + out.mmd_inc,
+                invalid_message_deliveries=(
+                    st.counters.invalid_message_deliveries + out.invalid_inc),
             )
-        if ingress_ok is not None:
-            # A closed receiver's eager arrivals are dropped: no possession,
-            # no relay, no score credit.  ``have_w`` going into K1 already
-            # holds the gated pend fold, so possession rebuilds exactly.
-            iok_w = as_mask(ingress_ok)[:, None]
-            iok_f = ingress_ok.to(torch.float32)[:, None]
-            out = out._replace(
-                have_w=have_w | (out.new_w & iok_w & valid_w),
-                fresh_w=out.fresh_w & iok_w,
-                new_w=out.new_w & iok_w,
-                fmd_inc=out.fmd_inc * iok_f,
-                mmd_inc=out.mmd_inc * iok_f,
-                invalid_inc=out.invalid_inc * iok_f,
+            pend_next = held_w | st.iwant_pend_w
+            incoming = (pend_next != 0).any(dim=1)
+            pend_hold = torch.where(
+                ready,
+                torch.where(incoming, st.gossip_delay, 0),
+                st.pend_hold - 1,
+            ).to(torch.int32)
+            new_fresh = out.fresh_w | gossip_new
+            fresh_hist = st.fresh_hist
+            if self.max_edge_delay:
+                # This round's plane enters the history at step mod D.
+                fresh_hist = fresh_hist.clone()
+                fresh_hist[:, st.step % dpl] = new_fresh
+            nxt = st._replace(
+                have_w=out.have_w,
+                fresh_w=new_fresh,
+                fresh_hist=fresh_hist,
+                first_step=first_step,
+                counters=c,
+                gossip_pend_w=pend_next,
+                iwant_pend_w=torch.zeros_like(st.iwant_pend_w),
+                pend_hold=pend_hold,
             )
-        # One stamping pass for both receipt sources (same step).
-        stamped = (
-            bitpack.unpack(gossip_new | out.new_w, self.m)
-            & (st.first_step < 0)
-        )
-        first_step = torch.where(stamped, st.step, st.first_step)
-        c = st.counters._replace(
-            first_message_deliveries=st.counters.first_message_deliveries
-            + out.fmd_inc,
-            mesh_message_deliveries=st.counters.mesh_message_deliveries
-            + out.mmd_inc,
-            invalid_message_deliveries=st.counters.invalid_message_deliveries
-            + out.invalid_inc,
-        )
-        pend_next = held_w | st.iwant_pend_w
-        incoming = (pend_next != 0).any(dim=1)
-        pend_hold = torch.where(
-            ready,
-            torch.where(incoming, st.gossip_delay, 0),
-            st.pend_hold - 1,
-        ).to(torch.int32)
-        new_fresh = out.fresh_w | gossip_new
-        fresh_hist = st.fresh_hist
-        if self.max_edge_delay:
-            # This round's plane enters the history at step mod D.
-            fresh_hist = fresh_hist.clone()
-            fresh_hist[:, st.step % dpl] = new_fresh
-        nxt = st._replace(
-            have_w=out.have_w,
-            fresh_w=new_fresh,
-            fresh_hist=fresh_hist,
-            first_step=first_step,
-            counters=c,
-            gossip_pend_w=pend_next,
-            iwant_pend_w=torch.zeros_like(st.iwant_pend_w),
-            pend_hold=pend_hold,
-        )
-        if not with_receipts:
-            return nxt
-        # Flight-recorder tap: receipts stamped this round, per message,
-        # masked the way the latency histogram counts them.
-        counted = (
-            stamped
-            & (st.alive & st.subscribed)[:, None]
-            & (st.msg_used & st.msg_valid)[None, :]
-        )
-        return nxt, counted.sum(dim=0, dtype=torch.int32)
+            if not with_receipts:
+                return nxt
+            # Flight-recorder tap: receipts stamped this round, per message,
+            # masked the way the latency histogram counts them.
+            counted = (
+                stamped
+                & (st.alive & st.subscribed)[:, None]
+                & (st.msg_used & st.msg_valid)[None, :]
+            )
+            return nxt, counted.sum(dim=0, dtype=torch.int32)
 
     def _step_wide(self, st: GossipState, with_receipts: bool = False):
         """One round on the int32 index view; the heartbeat schedule is
@@ -1266,28 +1295,31 @@ class GossipSub:
         leading [n_steps] axis.  The cumulative latency histogram is seeded
         from the stamp table and advanced by each round's new receipts.
         Nothing inside the loop reads the device."""
-        st = self._widen_indices(st)
-        if not record:
+        with span("rollout", st.step):
+            st = self._widen_indices(st)
+            if not record:
+                for _ in range(n_steps):
+                    st = self._step_wide(st)
+                return self._narrow_indices(st), None
+            hist = self._hist_seed(st)
+            rounds: List[Dict[str, torch.Tensor]] = []
+            first = st.step + 1
             for _ in range(n_steps):
-                st = self._step_wide(st)
-            return self._narrow_indices(st), None
-        hist = self._hist_seed(st)
-        rounds: List[Dict[str, torch.Tensor]] = []
-        first = st.step + 1
-        for _ in range(n_steps):
-            stamp = st.step
-            st, per_msg = self._step_wide(st, with_receipts=True)
-            hist = hist + hist_ops.latency_histogram_increment(
-                per_msg, st.msg_birth, st.msg_used & st.msg_valid,
-                stamp, FLIGHT_HIST_BINS,
-            )
-            rounds.append(self.flight_record_round(st, hist))
-        record_ys = {
-            name: torch.stack([r[name] for r in rounds]) for name in rounds[0]
-        } if rounds else {}
-        record_ys["step"] = torch.arange(first, first + n_steps,
-                                         dtype=torch.int32, device=self.device)
-        return self._narrow_indices(st), record_ys
+                stamp = st.step
+                st, per_msg = self._step_wide(st, with_receipts=True)
+                with span("round.record", stamp):
+                    hist = hist + hist_ops.latency_histogram_increment(
+                        per_msg, st.msg_birth, st.msg_used & st.msg_valid,
+                        stamp, FLIGHT_HIST_BINS,
+                    )
+                    rounds.append(self.flight_record_round(st, hist))
+            record_ys = {
+                name: torch.stack([r[name] for r in rounds])
+                for name in rounds[0]
+            } if rounds else {}
+            record_ys["step"] = torch.arange(
+                first, first + n_steps, dtype=torch.int32, device=self.device)
+            return self._narrow_indices(st), record_ys
 
     def _hist_seed(self, st: GossipState) -> torch.Tensor:
         """The recorder's cumulative latency histogram at the start of a
@@ -1344,35 +1376,38 @@ class GossipSub:
         delay, publishes.  Each test of whether a kind fires is a host
         ``if`` on the numpy row; ``row(name)`` gives the row staged on the
         device.  ``silence`` acts after the step."""
-        def delta(cur, off, on):
-            if getattr(ev, off).any():
-                cur = cur & ~row(off)
-            if getattr(ev, on).any():
-                cur = cur | row(on)
-            return cur
+        with span("round.events", st.step):
+            def delta(cur, off, on):
+                if getattr(ev, off).any():
+                    cur = cur & ~row(off)
+                if getattr(ev, on).any():
+                    cur = cur | row(on)
+                return cur
 
-        if ev.kill.any() or ev.revive.any():
-            alive = delta(st.alive, "kill", "revive")
-            st = st._replace(
-                alive=alive,
-                edge_live=compute_edge_live(st.nbr_valid, st.nbrs, alive))
-        if ev.sub_off.any() or ev.sub_on.any():
-            st = self._subscribe(st, delta(st.subscribed, "sub_off", "sub_on"))
-        if ev.mute_on.any() or ev.mute_off.any():
-            st = st._replace(
-                gossip_mute=delta(st.gossip_mute, "mute_off", "mute_on"))
-        if ev.promo_on.any() or ev.promo_off.any():
-            st = st._replace(
-                self_promo=delta(st.self_promo, "promo_off", "promo_on"))
-        if (ev.delay >= 0).any():
-            d = row("delay")
-            st = st._replace(
-                gossip_delay=torch.where(d >= 0, d, st.gossip_delay))
-        for src, slot, valid in zip(ev.pub_src, ev.pub_slot, ev.pub_valid):
-            if src >= 0:
-                st = self.publish(st, int(src), min(max(int(slot), 0),
-                                                    self.m - 1), bool(valid))
-        return st
+            if ev.kill.any() or ev.revive.any():
+                alive = delta(st.alive, "kill", "revive")
+                st = st._replace(
+                    alive=alive,
+                    edge_live=compute_edge_live(st.nbr_valid, st.nbrs, alive))
+            if ev.sub_off.any() or ev.sub_on.any():
+                st = self._subscribe(
+                    st, delta(st.subscribed, "sub_off", "sub_on"))
+            if ev.mute_on.any() or ev.mute_off.any():
+                st = st._replace(
+                    gossip_mute=delta(st.gossip_mute, "mute_off", "mute_on"))
+            if ev.promo_on.any() or ev.promo_off.any():
+                st = st._replace(
+                    self_promo=delta(st.self_promo, "promo_off", "promo_on"))
+            if (ev.delay >= 0).any():
+                d = row("delay")
+                st = st._replace(
+                    gossip_delay=torch.where(d >= 0, d, st.gossip_delay))
+            for src, slot, valid in zip(ev.pub_src, ev.pub_slot, ev.pub_valid):
+                if src >= 0:
+                    st = self.publish(st, int(src),
+                                      min(max(int(slot), 0), self.m - 1),
+                                      bool(valid))
+            return st
 
     def _campaign_record(self, st: GossipState, att: Optional[Tuple[
             torch.Tensor, torch.Tensor]], target: Optional[int]
@@ -1387,46 +1422,49 @@ class GossipSub:
         neighbors' rows, found through ``rev``; -1 where unwired),
         ``_score_count`` (the mask's size, which checks the pairing) and
         ``_gscore_idx``/``_gscore_vals`` (the attackers' global scores)."""
-        rec: Dict[str, torch.Tensor] = {}
-        n, k = self.n, self.k
-        attackers = None if att is None else att[0]
-        if att is not None:
-            ids = att[1]
-            nbrs_c = torch.clamp(st.nbrs, 0, n - 1).long()
-            att_slot = st.nbr_valid & attackers[nbrs_c]
-            honest = ~attackers & st.alive
-            honest_mesh = st.mesh & st.nbr_valid & honest[:, None]
-            captured = (st.mesh & att_slot & honest[:, None]).sum(
-                dtype=torch.int32)
-            rec["attacker_mesh_edges"] = captured
-            rec["attacker_capture_frac"] = captured.to(torch.float32) / (
-                torch.clamp(honest_mesh.sum(dtype=torch.int32), min=1).to(
-                    torch.float32))
-            i, s = nbrs_c[ids], torch.clamp(st.rev[ids], 0, k - 1).long()
-            paired = (st.nbr_valid[ids] & st.nbr_valid[i, s]
-                      & (st.nbrs[i, s] == ids[:, None]))
-            rec["_score_idx"] = torch.where(paired, i * k + s, -1).reshape(-1)
-            rec["_score_vals"] = st.scores[i, s].reshape(-1)
-            rec["_score_count"] = att_slot.sum(dtype=torch.int32)
-            rec["_gscore_idx"] = ids
-            rec["_gscore_vals"] = scoring_ops.global_score(
-                st.gcounters, self.score_params)[ids]
-            rec["honest_score_min"] = self.masked_min(
-                st.scores,
-                st.nbr_valid & ~att_slot & torch.isfinite(st.scores))
-            bp = st.gcounters.behaviour_penalty
-            # max over the attackers with initial 0.0: 0 when empty.
-            rec["attacker_behaviour_penalty"] = torch.clamp(
-                torch.where(attackers, bp, -torch.inf).max(), min=0.0)
-            rec["honest_behaviour_penalty_max"] = torch.where(
-                ~attackers, bp, 0.0).max()
-        if target is not None:
-            tgt_edges = st.mesh[target] & st.nbr_valid[target]
-            if attackers is not None:
-                tgt_edges = tgt_edges & ~attackers[
-                    torch.clamp(st.nbrs[target], 0, n - 1).long()]
-            rec["target_honest_mesh_edges"] = tgt_edges.sum(dtype=torch.int32)
-        return rec
+        with span("round.campaign_record", st.step):
+            rec: Dict[str, torch.Tensor] = {}
+            n, k = self.n, self.k
+            attackers = None if att is None else att[0]
+            if att is not None:
+                ids = att[1]
+                nbrs_c = torch.clamp(st.nbrs, 0, n - 1).long()
+                att_slot = st.nbr_valid & attackers[nbrs_c]
+                honest = ~attackers & st.alive
+                honest_mesh = st.mesh & st.nbr_valid & honest[:, None]
+                captured = (st.mesh & att_slot & honest[:, None]).sum(
+                    dtype=torch.int32)
+                rec["attacker_mesh_edges"] = captured
+                rec["attacker_capture_frac"] = captured.to(torch.float32) / (
+                    torch.clamp(honest_mesh.sum(dtype=torch.int32), min=1).to(
+                        torch.float32))
+                i, s = nbrs_c[ids], torch.clamp(st.rev[ids], 0, k - 1).long()
+                paired = (st.nbr_valid[ids] & st.nbr_valid[i, s]
+                          & (st.nbrs[i, s] == ids[:, None]))
+                rec["_score_idx"] = torch.where(
+                    paired, i * k + s, -1).reshape(-1)
+                rec["_score_vals"] = st.scores[i, s].reshape(-1)
+                rec["_score_count"] = att_slot.sum(dtype=torch.int32)
+                rec["_gscore_idx"] = ids
+                rec["_gscore_vals"] = scoring_ops.global_score(
+                    st.gcounters, self.score_params)[ids]
+                rec["honest_score_min"] = self.masked_min(
+                    st.scores,
+                    st.nbr_valid & ~att_slot & torch.isfinite(st.scores))
+                bp = st.gcounters.behaviour_penalty
+                # max over the attackers with initial 0.0: 0 when empty.
+                rec["attacker_behaviour_penalty"] = torch.clamp(
+                    torch.where(attackers, bp, -torch.inf).max(), min=0.0)
+                rec["honest_behaviour_penalty_max"] = torch.where(
+                    ~attackers, bp, 0.0).max()
+            if target is not None:
+                tgt_edges = st.mesh[target] & st.nbr_valid[target]
+                if attackers is not None:
+                    tgt_edges = tgt_edges & ~attackers[
+                        torch.clamp(st.nbrs[target], 0, n - 1).long()]
+                rec["target_honest_mesh_edges"] = tgt_edges.sum(
+                    dtype=torch.int32)
+            return rec
 
     def _to_host(self, record: Dict[str, torch.Tensor]
                  ) -> Dict[str, np.ndarray]:
@@ -1482,54 +1520,60 @@ class GossipSub:
         if self.peer_mesh is not None:
             raise NotImplementedError(
                 "rollout_events runs unsharded (mesh=None)")
-        n_steps = int(events.kill.shape[0])
-        rows = _StagedEvents(self, events)
-        att = None
-        if attackers is not None:
-            att_np = (attackers.cpu().numpy() if isinstance(
-                attackers, torch.Tensor) else np.asarray(attackers, bool))
-            att = (self._stage(att_np), self._stage(np.flatnonzero(att_np)))
-        st = self._widen_indices(st)
-        hist = None
-        if record:
-            hist = hist_ops.latency_histogram_seed(
-                st.first_step, st.msg_birth, st.msg_used & st.msg_valid,
-                st.alive & st.subscribed, FLIGHT_HIST_BINS,
-            )
-        rounds: List[Dict[str, torch.Tensor]] = []
-        first = st.step + 1
-        for t in range(n_steps):
-            ev = GossipEvents(*(plane[t] for plane in events))
-            st = self._apply_events(st, ev, lambda name: rows.row(name, t))
-            if not record:
-                st = self._step_wide(st)
-            else:
-                pubs = rows.publishers(t)
-                if pubs is not None:
-                    counted = (st.alive[pubs] & st.subscribed[pubs]).sum(
-                        dtype=torch.int32)
-                    hist = torch.cat([hist[:1] + counted, hist[1:]])
-                stamp = st.step
-                st, per_msg = self._step_wide(st, with_receipts=True)
-                hist = hist + hist_ops.latency_histogram_increment(
-                    per_msg, st.msg_birth, st.msg_used & st.msg_valid,
-                    stamp, FLIGHT_HIST_BINS,
-                )
-            if ev.silence.any():
-                st = st._replace(fresh_w=torch.where(
-                    rows.row("silence", t)[:, None], 0, st.fresh_w))
+        with span("rollout", st.step):
+            n_steps = int(events.kill.shape[0])
+            rows = _StagedEvents(self, events)
+            att = None
+            if attackers is not None:
+                att_np = (attackers.cpu().numpy() if isinstance(
+                    attackers, torch.Tensor) else np.asarray(attackers, bool))
+                att = (self._stage(att_np),
+                       self._stage(np.flatnonzero(att_np)))
+            st = self._widen_indices(st)
+            hist = None
             if record:
-                rec = self.flight_record_round(st, hist)
-                rec.update(self._campaign_record(st, att, target))
-                rounds.append(rec)
-        if not record:
-            return self._narrow_indices(st), None
-        record_ys = {
-            name: torch.stack([r[name] for r in rounds]) for name in rounds[0]
-        } if rounds else {}
-        record_ys["step"] = torch.arange(first, first + n_steps,
-                                         dtype=torch.int32, device=self.device)
-        return self._narrow_indices(st), self._finish_record(record_ys)
+                hist = hist_ops.latency_histogram_seed(
+                    st.first_step, st.msg_birth, st.msg_used & st.msg_valid,
+                    st.alive & st.subscribed, FLIGHT_HIST_BINS,
+                )
+            rounds: List[Dict[str, torch.Tensor]] = []
+            first = st.step + 1
+            for t in range(n_steps):
+                ev = GossipEvents(*(plane[t] for plane in events))
+                st = self._apply_events(st, ev, lambda name: rows.row(name, t))
+                if not record:
+                    st = self._step_wide(st)
+                else:
+                    pubs = rows.publishers(t)
+                    if pubs is not None:
+                        counted = (st.alive[pubs] & st.subscribed[pubs]).sum(
+                            dtype=torch.int32)
+                        hist = torch.cat([hist[:1] + counted, hist[1:]])
+                    stamp = st.step
+                    st, per_msg = self._step_wide(st, with_receipts=True)
+                if ev.silence.any():
+                    st = st._replace(fresh_w=torch.where(
+                        rows.row("silence", t)[:, None], 0, st.fresh_w))
+                if record:
+                    # The increment reads no fresh word: the silence above
+                    # leaves it as it was.
+                    with span("round.record", stamp):
+                        hist = hist + hist_ops.latency_histogram_increment(
+                            per_msg, st.msg_birth, st.msg_used & st.msg_valid,
+                            stamp, FLIGHT_HIST_BINS,
+                        )
+                        rec = self.flight_record_round(st, hist)
+                    rec.update(self._campaign_record(st, att, target))
+                    rounds.append(rec)
+            if not record:
+                return self._narrow_indices(st), None
+            record_ys = {
+                name: torch.stack([r[name] for r in rounds])
+                for name in rounds[0]
+            } if rounds else {}
+            record_ys["step"] = torch.arange(
+                first, first + n_steps, dtype=torch.int32, device=self.device)
+            return self._narrow_indices(st), self._finish_record(record_ys)
 
     def flight_record_round(self, st: GossipState,
                             lat_hist: torch.Tensor) -> Dict[str, torch.Tensor]:

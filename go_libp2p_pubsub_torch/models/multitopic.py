@@ -60,6 +60,7 @@ from ..ops.graphs import decode_index_plane, top_mask
 from ..ops.px import px_rewire
 from ..ops.schedule import MultiTopicEvents
 from ..ops.scoring import GlobalCounters, TopicCounters, segment_sum
+from ..utils.trace import span
 from .gossipsub import (
     _AGE_CAP,
     FLIGHT_HIST_BINS,
@@ -375,97 +376,103 @@ class MultiTopicGossipSub:
         all-reduce MAX, and each rank writes the offered copies into the
         targets it holds.  The [T, M] metadata and the keys update alike
         on every rank."""
-        p, sp = self.params, self.score_params
-        n, k, w, b = self.n, self.k, self.w, self.nl
-        topic, src, slot, valid = int(topic), int(src), int(slot), bool(valid)
-        # The publisher's local row, None on a rank that does not hold it.
-        ls = src - self.row0 if 0 <= src - self.row0 < b else None
-        word, bit = divmod(slot, bitpack.WORD)
-        bitv = bitpack.as_int32_bits(1 << bit)
+        with span("publish", st.step):
+            p, sp = self.params, self.score_params
+            n, k, w, b = self.n, self.k, self.w, self.nl
+            topic, src, slot = int(topic), int(src), int(slot)
+            valid = bool(valid)
+            # The publisher's local row, None on a rank that does not hold
+            # it.
+            ls = src - self.row0 if 0 <= src - self.row0 < b else None
+            word, bit = divmod(slot, bitpack.WORD)
+            bitv = bitpack.as_int32_bits(1 << bit)
 
-        def cleared(plane):
-            plane = plane.clone()
-            plane[topic, :, word] &= ~bitv
-            return plane
+            def cleared(plane):
+                plane = plane.clone()
+                plane[topic, :, word] &= ~bitv
+                return plane
 
-        have_w, fresh_w = cleared(st.have_w), cleared(st.fresh_w)
-        pend_w, iwant_w = cleared(st.gossip_pend_w), cleared(st.iwant_pend_w)
-        # Element stores of Python scalars go through ``fill_``: an indexed
-        # assignment would copy the scalar from the host and synchronise.
-        first_step = st.first_step.clone()
-        first_step[topic, :, slot].fill_(-1)
-        if ls is not None:
-            have_w[topic, ls, word] |= bitv
-            fresh_w[topic, ls, word] |= bitv
-            first_step[topic, ls, slot].fill_(st.step)
-        mv, mb = st.msg_valid.clone(), st.msg_birth.clone()
-        ma, mu = st.msg_active.clone(), st.msg_used.clone()
-        mv[topic, slot].fill_(valid)
-        mb[topic, slot].fill_(st.step)
-        ma[topic, slot].fill_(True)
-        mu[topic, slot].fill_(True)
-        # Advance the topic's key so back-to-back publishes within one step
-        # draw fresh fanout randomness.
-        kpub, knext = rng.split(st.keys[topic], 2).unbind(0)
-        keys = st.keys.clone()
-        keys[topic] = knext
-        fanout, fanout_age = st.fanout, st.fanout_age
-        ids = torch.full((k,), -1, dtype=torch.int32, device=self.device)
-        if ls is not None:
-            eligible = st.edge_live[topic, ls] & (
-                st.scores[ls] >= sp.publish_threshold)
-            if p.flood_publish:
-                targets = eligible
+            have_w, fresh_w = cleared(st.have_w), cleared(st.fresh_w)
+            pend_w = cleared(st.gossip_pend_w)
+            iwant_w = cleared(st.iwant_pend_w)
+            # Element stores of Python scalars go through ``fill_``: an
+            # indexed assignment would copy the scalar from the host and
+            # synchronise.
+            first_step = st.first_step.clone()
+            first_step[topic, :, slot].fill_(-1)
+            if ls is not None:
+                have_w[topic, ls, word] |= bitv
+                fresh_w[topic, ls, word] |= bitv
+                first_step[topic, ls, slot].fill_(st.step)
+            mv, mb = st.msg_valid.clone(), st.msg_birth.clone()
+            ma, mu = st.msg_active.clone(), st.msg_used.clone()
+            mv[topic, slot].fill_(valid)
+            mb[topic, slot].fill_(st.step)
+            ma[topic, slot].fill_(True)
+            mu[topic, slot].fill_(True)
+            # Advance the topic's key so back-to-back publishes within one step
+            # draw fresh fanout randomness.
+            kpub, knext = rng.split(st.keys[topic], 2).unbind(0)
+            keys = st.keys.clone()
+            keys[topic] = knext
+            fanout, fanout_age = st.fanout, st.fanout_age
+            ids = torch.full((k,), -1, dtype=torch.int32, device=self.device)
+            if ls is not None:
+                eligible = st.edge_live[topic, ls] & (
+                    st.scores[ls] >= sp.publish_threshold)
+                if p.flood_publish:
+                    targets = eligible
+                else:
+                    cur = st.fanout[topic, ls] & eligible
+                    want = torch.clamp(p.d - cur.sum(), 0, p.d).to(torch.int32)
+                    add = top_mask(
+                        torch.where((eligible & ~cur)[None, :],
+                                    rng.uniform(kpub, (1, k)), -torch.inf),
+                        want[None], kmax=p.d,
+                    )[0]
+                    newf = cur | add
+                    is_sub = st.subscribed[topic, ls]
+                    targets = torch.where(is_sub, False, newf)
+                    fanout = st.fanout.clone()
+                    fanout[topic, ls] = torch.where(
+                        is_sub, st.fanout[topic, ls], newf)
+                    fanout_age = st.fanout_age.clone()
+                    fanout_age[topic, ls] = torch.where(
+                        is_sub, st.fanout_age[topic, ls], 0)
+                ids = torch.where(targets, decode_index_plane(st.nbrs[ls]), n)
+            # Offered copies land next round through the pend fold (valid
+            # only); the hold arms only on an idle empty row that got a bit.
+            # Target rows of this rank's block; row b (dropped) elsewhere.
+            if self.mesh is None:
+                rows = ids.long()
             else:
-                cur = st.fanout[topic, ls] & eligible
-                want = torch.clamp(p.d - cur.sum(), 0, p.d).to(torch.int32)
-                add = top_mask(
-                    torch.where((eligible & ~cur)[None, :],
-                                rng.uniform(kpub, (1, k)), -torch.inf),
-                    want[None], kmax=p.d,
-                )[0]
-                newf = cur | add
-                is_sub = st.subscribed[topic, ls]
-                targets = torch.where(is_sub, False, newf)
-                fanout = st.fanout.clone()
-                fanout[topic, ls] = torch.where(is_sub, st.fanout[topic, ls],
-                                                newf)
-                fanout_age = st.fanout_age.clone()
-                fanout_age[topic, ls] = torch.where(
-                    is_sub, st.fanout_age[topic, ls], 0)
-            ids = torch.where(targets, decode_index_plane(st.nbrs[ls]), n)
-        # Offered copies land next round through the pend fold (valid
-        # only); the hold arms only on an idle empty row that got a bit.
-        # Target rows of this rank's block; row b (dropped) elsewhere.
-        if self.mesh is None:
-            rows = ids.long()
-        else:
-            loc = self.mesh.max(ids).long() - self.row0
-            rows = torch.where((loc >= 0) & (loc < b), loc, b)
-        rows_c = torch.clamp(rows, 0, b - 1)
-        pend_t = pend_w[topic]
-        gathered = pend_t[rows_c]                                # [K, W]
-        ext = torch.cat([pend_t, pend_t.new_zeros((1, w))])
-        if valid:
-            upd = gathered.clone()
-            upd[:, word] |= bitv
-        else:
-            upd = gathered
-        ext[rows] = upd
-        pend_w[topic] = ext[:b]
-        hold = st.pend_hold.clone()
-        cur_hold = st.pend_hold[topic][rows_c]
-        arm = (cur_hold <= 0) & (gathered == 0).all(dim=-1) & valid
-        hold_ext = torch.cat([st.pend_hold[topic],
-                              st.pend_hold.new_zeros(1)])
-        hold_ext[rows] = torch.where(arm, st.gossip_delay[rows_c], cur_hold)
-        hold[topic] = hold_ext[:b]
-        return st._replace(
-            have_w=have_w, fresh_w=fresh_w, gossip_pend_w=pend_w,
-            iwant_pend_w=iwant_w, pend_hold=hold, first_step=first_step,
-            msg_valid=mv, msg_birth=mb, msg_active=ma, msg_used=mu,
-            fanout=fanout, fanout_age=fanout_age, keys=keys,
-        )
+                loc = self.mesh.max(ids).long() - self.row0
+                rows = torch.where((loc >= 0) & (loc < b), loc, b)
+            rows_c = torch.clamp(rows, 0, b - 1)
+            pend_t = pend_w[topic]
+            gathered = pend_t[rows_c]                                # [K, W]
+            ext = torch.cat([pend_t, pend_t.new_zeros((1, w))])
+            if valid:
+                upd = gathered.clone()
+                upd[:, word] |= bitv
+            else:
+                upd = gathered
+            ext[rows] = upd
+            pend_w[topic] = ext[:b]
+            hold = st.pend_hold.clone()
+            cur_hold = st.pend_hold[topic][rows_c]
+            arm = (cur_hold <= 0) & (gathered == 0).all(dim=-1) & valid
+            hold_ext = torch.cat([st.pend_hold[topic],
+                                  st.pend_hold.new_zeros(1)])
+            hold_ext[rows] = torch.where(
+                arm, st.gossip_delay[rows_c], cur_hold)
+            hold[topic] = hold_ext[:b]
+            return st._replace(
+                have_w=have_w, fresh_w=fresh_w, gossip_pend_w=pend_w,
+                iwant_pend_w=iwant_w, pend_hold=hold, first_step=first_step,
+                msg_valid=mv, msg_birth=mb, msg_active=ma, msg_used=mu,
+                fanout=fanout, fanout_age=fanout_age, keys=keys,
+            )
 
     def set_gossip_delay(self, st: MultiTopicState, delay) -> MultiTopicState:
         """Shared per-peer ingress gossip latency (int32[N])."""
@@ -542,165 +549,172 @@ class MultiTopicGossipSub:
         )
 
     def _heartbeat(self, st: MultiTopicState) -> MultiTopicState:
-        p, sp = self.params, self.score_params
-        n, k, hb = self.n, self.k, self.heartbeat_steps
-        pm, b = self.mesh, self.nl
-        # A rank of the sharded rollout passes the global-clipped edge
-        # indices to the mesh maintenance, as GossipSub(mesh=) does.
-        edge_idx = None if pm is None else (
-            torch.clamp(st.nbrs, 0, n - 1), torch.clamp(st.rev, 0, k - 1))
+        with span("round.heartbeat", st.step):
+            p, sp = self.params, self.score_params
+            n, k, hb = self.n, self.k, self.heartbeat_steps
+            pm, b = self.mesh, self.nl
+            # A rank of the sharded rollout passes the global-clipped edge
+            # indices to the mesh maintenance, as GossipSub(mesh=) does.
+            edge_idx = None if pm is None else (
+                torch.clamp(st.nbrs, 0, n - 1), torch.clamp(st.rev, 0, k - 1))
 
-        # Tick + decay the topic counters per topic; decay globals once.
-        cs = [
-            scoring_ops.decay_topic_counters(scoring_ops.tick_mesh_clocks(
-                TopicCounters(*(f[t] for f in st.counters)), st.mesh[t],
-                p.heartbeat_interval_s), sp)
-            for t in range(self.t)
-        ]
-        g = scoring_ops.decay_global_counters(st.gcounters, sp)
+            # Tick + decay the topic counters per topic; decay globals once.
+            cs = [
+                scoring_ops.decay_topic_counters(scoring_ops.tick_mesh_clocks(
+                    TopicCounters(*(f[t] for f in st.counters)), st.mesh[t],
+                    p.heartbeat_interval_s), sp)
+                for t in range(self.t)
+            ]
+            g = scoring_ops.decay_global_counters(st.gcounters, sp)
 
-        # v1.1 aggregation: the topic components summed over topics (left
-        # to right from a zero accumulator, the order of XLA's reduction
-        # over T < 32), plus the remote's global components.
-        total = torch.zeros((b, k), dtype=torch.float32, device=self.device)
-        for c_t in cs:
-            total = total + scoring_ops.topic_score(c_t, sp)
-        jidx = torch.clamp(st.nbrs, 0, n - 1)
-        if pm is None:
-            remote = scoring_ops.global_score(g, sp)[jidx.long()]
-        else:
-            remote = pm.gather(scoring_ops.global_score(g, sp, pm), jidx)
-        scores = torch.where(st.nbr_valid, total + remote, -torch.inf)
-
-        topic_alive = self._topic_alive(st)
-        do_og = ((st.step // hb) % p.opportunistic_graft_ticks) == 0
-        fanout_ttl_hb = self.gs.fanout_ttl_heartbeats()
-        age = st.step - st.msg_birth                              # [T, M]
-        seen_expired = st.msg_used & (age > self.gs.seen_ttl_steps())
-        gossip_ok = (st.msg_valid & st.msg_active
-                     & (age <= p.history_gossip * hb))
-        expired = st.msg_active & (age > p.history_length * hb)
-        # One promise-breaker view of each slot's remote serves every topic.
-        serve_ok = ~self.gs._safe_gather(st.gossip_mute, st.nbrs, True)
-
-        out: Dict[str, List[torch.Tensor]] = {}
-
-        def put(**kw):
-            for name, v in kw.items():
-                out.setdefault(name, []).append(v)
-
-        for t in range(self.t):
-            khb, kgossip, kiwant, kfan, kpx, knext = rng.split(
-                st.keys[t], 6).unbind(0)
-            el, al = st.edge_live[t], topic_alive[t]
-            new_mesh, grafted, pruned, bo2, bo_viol = heartbeat_mesh(
-                khb, st.mesh[t], scores, st.nbrs, st.rev, el, al, p,
-                st.backoff[t], st.outbound, do_og,
-                og_threshold=sp.opportunistic_graft_threshold,
-                ignore_backoff=self.gs.graft_spammers,
-                uid=self._uid, edge_idx=edge_idx, pm=pm,
-            )
-            c2 = scoring_ops.on_graft(
-                scoring_ops.on_prune(cs[t], pruned, sp), grafted)
-            have_t = st.have_w[t]
-            have2 = have_t & ~bitpack.pack(seen_expired[t])
-            # gossip_packed.gossip_exchange_packed with its select run by K2:
-            # the topic's possession advertises, the scrubbed one dedups.
-            if min(p.d_lazy, k) <= 0:
-                iwant_t = torch.zeros_like(have_t)
-                broken_t = torch.zeros((b, k), dtype=torch.float32,
-                                       device=self.device)
+            # v1.1 aggregation: the topic components summed over topics (left
+            # to right from a zero accumulator, the order of XLA's reduction
+            # over T < 32), plus the remote's global components.
+            total = torch.zeros((b, k), dtype=torch.float32,
+                                device=self.device)
+            for c_t in cs:
+                total = total + scoring_ops.topic_score(c_t, sp)
+            jidx = torch.clamp(st.nbrs, 0, n - 1)
+            if pm is None:
+                remote = scoring_ops.global_score(g, sp)[jidx.long()]
             else:
-                x = exchange_prep(
-                    kgossip, kiwant, have_t, new_mesh, st.nbrs, st.rev, el,
-                    al, scores, bitpack.pack(gossip_ok[t]), p,
-                    sp.gossip_threshold, serve_ok, uid=self._uid, pm=pm,
-                )
-                select = (cuda_gossip.exchange_select if pm is None else
-                          partial(cuda_gossip.exchange_select_sharded, pm))
-                iwant_t, broken_p = select(
-                    x.jidx_p, x.adv_ok_p, x.accept_p, x.serve_p, x.rows,
-                    have2, al, p.max_ihave_length, p.max_iwant_length,
-                )
-                broken_t = broken_p.gather(1, x.inv.long())
-            # Fanout upkeep for this topic's non-subscribed publishers.
-            fage2 = torch.clamp(st.fanout_age[t] + 1, max=_AGE_CAP)
-            factive = (fage2 <= fanout_ttl_hb) & ~st.subscribed[t] & st.alive
-            feligible = el & (scores >= sp.publish_threshold)
-            fkeep = st.fanout[t] & feligible
-            fwant = torch.where(
-                factive, torch.clamp(p.d - fkeep.sum(dim=1), 0, p.d), 0
-            ).to(torch.int32)
-            fadd = top_mask(
-                torch.where(feligible & ~fkeep,
-                            uniform_by_uid(kfan, (b, k), self._uid),
-                            -torch.inf),
-                fwant, kmax=p.d,
-            )
-            put(mesh=new_mesh,
-                fanout=torch.where(factive[:, None], fkeep | fadd, False),
-                fanout_age=fage2, backoff=bo2, have_w=have2,
-                gossip_pend_w=st.gossip_pend_w[t]
-                & ~bitpack.pack(expired[t])[None, :],
-                iwant_pend_w=iwant_t, keys=knext, bo_viol=bo_viol,
-                broken=broken_t, pruned=pruned, kpx=kpx)
-            put(**{f"c.{i}": v for i, v in enumerate(c2)})
+                remote = pm.gather(scoring_ops.global_score(g, sp, pm), jidx)
+            scores = torch.where(st.nbr_valid, total + remote, -torch.inf)
 
-        # P7 is global: backoff-violating GRAFTs and broken promises in any
-        # topic accrue to the sender's one behaviour-penalty counter (broken
-        # promises charged by remote id).  Both sums are integer-valued.
-        broken = torch.stack(out["broken"]).sum(dim=0)
-        promise_ids = torch.where(st.nbr_valid, st.nbrs, n).reshape(-1)
-        if pm is None:
-            promise_viol = segment_sum(broken.reshape(-1), promise_ids,
-                                       n + 1)[:n]
-        else:
-            # Whole counts, added over the ranks as integers: the float
-            # segment_sum bit for bit.
-            promise_viol = pm.local(pm.index_add_rows(
-                promise_ids, broken.reshape(-1).to(torch.int32))).to(
-                    torch.float32)
-        g = g._replace(
-            behaviour_penalty=g.behaviour_penalty
-            + torch.stack(out["bo_viol"]).sum(dim=0) + promise_viol)
+            topic_alive = self._topic_alive(st)
+            do_og = ((st.step // hb) % p.opportunistic_graft_ticks) == 0
+            fanout_ttl_hb = self.gs.fanout_ttl_heartbeats()
+            age = st.step - st.msg_birth                              # [T, M]
+            seen_expired = st.msg_used & (age > self.gs.seen_ttl_steps())
+            gossip_ok = (st.msg_valid & st.msg_active
+                         & (age <= p.history_gossip * hb))
+            expired = st.msg_active & (age > p.history_length * hb)
+            # One promise-breaker view of each slot's remote serves every
+            # topic.
+            serve_ok = ~self.gs._safe_gather(st.gossip_mute, st.nbrs, True)
 
-        # PX on prune, serialized across topics in topic order: each call
-        # rewires the shared adjacency the next topic's call sees.  Gossip
-        # above ran on the pre-PX snapshot, as in the reference.
-        nbrs2, rev2, nv2, ob2 = st.nbrs, st.rev, st.nbr_valid, st.outbound
-        backoff, connected = [], []
-        for t in range(self.t):
-            px = px_rewire(
-                out["kpx"][t], nbrs2, rev2, nv2, ob2, out["backoff"][t],
-                out["mesh"][t], out["pruned"][t], scores, st.alive,
-                sp.accept_px_threshold, uid=self._uid, pm=pm,
+            out: Dict[str, List[torch.Tensor]] = {}
+
+            def put(**kw):
+                for name, v in kw.items():
+                    out.setdefault(name, []).append(v)
+
+            for t in range(self.t):
+                khb, kgossip, kiwant, kfan, kpx, knext = rng.split(
+                    st.keys[t], 6).unbind(0)
+                el, al = st.edge_live[t], topic_alive[t]
+                new_mesh, grafted, pruned, bo2, bo_viol = heartbeat_mesh(
+                    khb, st.mesh[t], scores, st.nbrs, st.rev, el, al, p,
+                    st.backoff[t], st.outbound, do_og,
+                    og_threshold=sp.opportunistic_graft_threshold,
+                    ignore_backoff=self.gs.graft_spammers,
+                    uid=self._uid, edge_idx=edge_idx, pm=pm,
+                )
+                c2 = scoring_ops.on_graft(
+                    scoring_ops.on_prune(cs[t], pruned, sp), grafted)
+                have_t = st.have_w[t]
+                have2 = have_t & ~bitpack.pack(seen_expired[t])
+                # gossip_packed.gossip_exchange_packed with its select run by
+                # K2: the topic's possession advertises, the scrubbed one
+                # dedups.
+                if min(p.d_lazy, k) <= 0:
+                    iwant_t = torch.zeros_like(have_t)
+                    broken_t = torch.zeros((b, k), dtype=torch.float32,
+                                           device=self.device)
+                else:
+                    x = exchange_prep(
+                        kgossip, kiwant, have_t, new_mesh, st.nbrs, st.rev, el,
+                        al, scores, bitpack.pack(gossip_ok[t]), p,
+                        sp.gossip_threshold, serve_ok, uid=self._uid, pm=pm,
+                    )
+                    select = (cuda_gossip.exchange_select if pm is None else
+                              partial(cuda_gossip.exchange_select_sharded, pm))
+                    iwant_t, broken_p = select(
+                        x.jidx_p, x.adv_ok_p, x.accept_p, x.serve_p, x.rows,
+                        have2, al, p.max_ihave_length, p.max_iwant_length,
+                    )
+                    broken_t = broken_p.gather(1, x.inv.long())
+                # Fanout upkeep for this topic's non-subscribed publishers.
+                fage2 = torch.clamp(st.fanout_age[t] + 1, max=_AGE_CAP)
+                factive = ((fage2 <= fanout_ttl_hb) & ~st.subscribed[t]
+                           & st.alive)
+                feligible = el & (scores >= sp.publish_threshold)
+                fkeep = st.fanout[t] & feligible
+                fwant = torch.where(
+                    factive, torch.clamp(p.d - fkeep.sum(dim=1), 0, p.d), 0
+                ).to(torch.int32)
+                fadd = top_mask(
+                    torch.where(feligible & ~fkeep,
+                                uniform_by_uid(kfan, (b, k), self._uid),
+                                -torch.inf),
+                    fwant, kmax=p.d,
+                )
+                put(mesh=new_mesh,
+                    fanout=torch.where(factive[:, None], fkeep | fadd, False),
+                    fanout_age=fage2, backoff=bo2, have_w=have2,
+                    gossip_pend_w=st.gossip_pend_w[t]
+                    & ~bitpack.pack(expired[t])[None, :],
+                    iwant_pend_w=iwant_t, keys=knext, bo_viol=bo_viol,
+                    broken=broken_t, pruned=pruned, kpx=kpx)
+                put(**{f"c.{i}": v for i, v in enumerate(c2)})
+
+            # P7 is global: backoff-violating GRAFTs and broken promises in
+            # any topic accrue to the sender's one behaviour-penalty counter
+            # (broken promises charged by remote id).  Both sums are
+            # integer-valued.
+            broken = torch.stack(out["broken"]).sum(dim=0)
+            promise_ids = torch.where(st.nbr_valid, st.nbrs, n).reshape(-1)
+            if pm is None:
+                promise_viol = segment_sum(broken.reshape(-1), promise_ids,
+                                           n + 1)[:n]
+            else:
+                # Whole counts, added over the ranks as integers: the float
+                # segment_sum bit for bit.
+                promise_viol = pm.local(pm.index_add_rows(
+                    promise_ids, broken.reshape(-1).to(torch.int32))).to(
+                        torch.float32)
+            g = g._replace(
+                behaviour_penalty=g.behaviour_penalty
+                + torch.stack(out["bo_viol"]).sum(dim=0) + promise_viol)
+
+            # PX on prune, serialized across topics in topic order: each call
+            # rewires the shared adjacency the next topic's call sees.  Gossip
+            # above ran on the pre-PX snapshot, as in the reference.
+            nbrs2, rev2, nv2, ob2 = st.nbrs, st.rev, st.nbr_valid, st.outbound
+            backoff, connected = [], []
+            for t in range(self.t):
+                px = px_rewire(
+                    out["kpx"][t], nbrs2, rev2, nv2, ob2, out["backoff"][t],
+                    out["mesh"][t], out["pruned"][t], scores, st.alive,
+                    sp.accept_px_threshold, uid=self._uid, pm=pm,
+                )
+                nbrs2, rev2 = px.nbrs, px.rev
+                nv2, ob2 = px.nbr_valid, px.outbound
+                backoff.append(px.backoff)
+                connected.append(px.connected.any() if pm is None
+                                 else pm.any(px.connected))
+            # The reference regathers the liveness caches under lax.cond when a
+            # PX edge formed; both branches agree otherwise.
+            edge_live = torch.where(
+                torch.stack(connected).any(),
+                self._edge_live_stack(nv2, nbrs2, topic_alive), st.edge_live)
+            return st._replace(
+                nbrs=nbrs2, rev=rev2, nbr_valid=nv2, outbound=ob2,
+                edge_live=edge_live,
+                mesh=torch.stack(out["mesh"]),
+                fanout=torch.stack(out["fanout"]),
+                fanout_age=torch.stack(out["fanout_age"]),
+                backoff=torch.stack(backoff),
+                counters=TopicCounters(*(
+                    torch.stack(out[f"c.{i}"])
+                    for i in range(len(TopicCounters._fields)))),
+                gcounters=g, scores=scores,
+                have_w=torch.stack(out["have_w"]),
+                gossip_pend_w=torch.stack(out["gossip_pend_w"]),
+                iwant_pend_w=torch.stack(out["iwant_pend_w"]),
+                msg_active=st.msg_active & ~expired,
+                keys=torch.stack(out["keys"]),
             )
-            nbrs2, rev2, nv2, ob2 = px.nbrs, px.rev, px.nbr_valid, px.outbound
-            backoff.append(px.backoff)
-            connected.append(px.connected.any() if pm is None
-                             else pm.any(px.connected))
-        # The reference regathers the liveness caches under lax.cond when a
-        # PX edge formed; both branches agree otherwise.
-        edge_live = torch.where(
-            torch.stack(connected).any(),
-            self._edge_live_stack(nv2, nbrs2, topic_alive), st.edge_live)
-        return st._replace(
-            nbrs=nbrs2, rev=rev2, nbr_valid=nv2, outbound=ob2,
-            edge_live=edge_live,
-            mesh=torch.stack(out["mesh"]),
-            fanout=torch.stack(out["fanout"]),
-            fanout_age=torch.stack(out["fanout_age"]),
-            backoff=torch.stack(backoff),
-            counters=TopicCounters(*(
-                torch.stack(out[f"c.{i}"])
-                for i in range(len(TopicCounters._fields)))),
-            gcounters=g, scores=scores,
-            have_w=torch.stack(out["have_w"]),
-            gossip_pend_w=torch.stack(out["gossip_pend_w"]),
-            iwant_pend_w=torch.stack(out["iwant_pend_w"]),
-            msg_active=st.msg_active & ~expired,
-            keys=torch.stack(out["keys"]),
-        )
 
     def _step_wide(self, st: MultiTopicState) -> MultiTopicState:
         """One round on the int32 index view; the heartbeat schedule is
@@ -731,38 +745,42 @@ class MultiTopicGossipSub:
         every count (the histogram, the participants a topic, the degree
         sum, the live peers, the pending bits) adds over the ranks in one
         integer all-reduce before any ratio is taken."""
-        topic_alive = self._topic_alive(st)                   # [T, N]
-        in_window = st.msg_used & st.msg_valid                # [T, M]
-        lat = st.first_step - st.msg_birth[:, None, :]
-        counted = ((st.first_step >= 0) & topic_alive[:, :, None]
-                   & in_window[:, None, :])
-        seg = torch.where(counted, torch.clamp(lat, 0, FLIGHT_HIST_BINS - 1),
-                          FLIGHT_HIST_BINS)
-        hist = hist_ops._bin_counts(torch.ones_like(seg), seg,
-                                    FLIGHT_HIST_BINS)
-        part_t = topic_alive.sum(dim=1, dtype=torch.int32)    # [T]
-        mesh_deg = (st.mesh & st.nbr_valid[None]).sum(dim=2,
-                                                       dtype=torch.int32)
-        deg_sum = torch.where(topic_alive, mesh_deg, 0).sum(dtype=torch.int32)
-        peers_alive = st.alive.sum(dtype=torch.int32)
-        pending = bitpack.popcount(st.gossip_pend_w).sum(dtype=torch.int32)
-        if self.mesh is not None:
-            v = self.mesh.sum(torch.cat([
-                hist, part_t, torch.stack([deg_sum, peers_alive, pending])]))
-            nb, t = FLIGHT_HIST_BINS, self.t
-            hist, part_t = v[:nb], v[nb:nb + t]
-            deg_sum, peers_alive, pending = v[nb + t:].unbind(0)
-        expected = (part_t * in_window.sum(dim=1, dtype=torch.int32)).sum(
-            dtype=torch.int32)
-        part_total = torch.clamp(part_t.sum(dtype=torch.int32), min=1)
-        return {
-            "peers_alive": peers_alive,
-            "delivery_frac": hist.sum(dtype=torch.int32)
-            / torch.clamp(expected, min=1),
-            "mesh_degree_mean": deg_sum / part_total,
-            "gossip_pending": pending,
-            "lat_hist": hist,
-        }
+        with span("round.record", st.step):
+            topic_alive = self._topic_alive(st)                   # [T, N]
+            in_window = st.msg_used & st.msg_valid                # [T, M]
+            lat = st.first_step - st.msg_birth[:, None, :]
+            counted = ((st.first_step >= 0) & topic_alive[:, :, None]
+                       & in_window[:, None, :])
+            seg = torch.where(
+                counted, torch.clamp(lat, 0, FLIGHT_HIST_BINS - 1),
+                FLIGHT_HIST_BINS)
+            hist = hist_ops._bin_counts(torch.ones_like(seg), seg,
+                                        FLIGHT_HIST_BINS)
+            part_t = topic_alive.sum(dim=1, dtype=torch.int32)    # [T]
+            mesh_deg = (st.mesh & st.nbr_valid[None]).sum(dim=2,
+                                                           dtype=torch.int32)
+            deg_sum = torch.where(topic_alive, mesh_deg, 0).sum(
+                dtype=torch.int32)
+            peers_alive = st.alive.sum(dtype=torch.int32)
+            pending = bitpack.popcount(st.gossip_pend_w).sum(dtype=torch.int32)
+            if self.mesh is not None:
+                v = self.mesh.sum(torch.cat([
+                    hist, part_t,
+                    torch.stack([deg_sum, peers_alive, pending])]))
+                nb, t = FLIGHT_HIST_BINS, self.t
+                hist, part_t = v[:nb], v[nb:nb + t]
+                deg_sum, peers_alive, pending = v[nb + t:].unbind(0)
+            expected = (part_t * in_window.sum(dim=1, dtype=torch.int32)).sum(
+                dtype=torch.int32)
+            part_total = torch.clamp(part_t.sum(dtype=torch.int32), min=1)
+            return {
+                "peers_alive": peers_alive,
+                "delivery_frac": hist.sum(dtype=torch.int32)
+                / torch.clamp(expected, min=1),
+                "mesh_degree_mean": deg_sum / part_total,
+                "gossip_pending": pending,
+                "lat_hist": hist,
+            }
 
     def _apply_events(self, st: MultiTopicState, ev: MultiTopicEvents,
                      row) -> MultiTopicState:
@@ -770,28 +788,30 @@ class MultiTopicGossipSub:
         numpy) in the reference's order: kills, mute, delay, publishes.
         Each test of whether a kind fires is a host ``if`` on the numpy
         row; ``row(name)`` gives the row staged on the device."""
-        if ev.kill.any():
-            alive = st.alive & ~row("kill")
-            st = st._replace(alive=alive, edge_live=edge_live_stack(
-                st.nbr_valid, st.nbrs, alive[None] & st.subscribed))
-        if ev.mute_on.any() or ev.mute_off.any():
-            mute = st.gossip_mute
-            if ev.mute_off.any():
-                mute = mute & ~row("mute_off")
-            if ev.mute_on.any():
-                mute = mute | row("mute_on")
-            st = st._replace(gossip_mute=mute)
-        if (ev.delay >= 0).any():
-            d = row("delay")
-            st = st._replace(
-                gossip_delay=torch.where(d >= 0, d, st.gossip_delay))
-        for topic, src, slot, valid in zip(ev.pub_topic, ev.pub_src,
-                                           ev.pub_slot, ev.pub_valid):
-            if src >= 0 and topic >= 0:
-                st = self.publish(st, min(int(topic), self.t - 1), int(src),
-                                  min(max(int(slot), 0), self.m - 1),
-                                  bool(valid))
-        return st
+        with span("round.events", st.step):
+            if ev.kill.any():
+                alive = st.alive & ~row("kill")
+                st = st._replace(alive=alive, edge_live=edge_live_stack(
+                    st.nbr_valid, st.nbrs, alive[None] & st.subscribed))
+            if ev.mute_on.any() or ev.mute_off.any():
+                mute = st.gossip_mute
+                if ev.mute_off.any():
+                    mute = mute & ~row("mute_off")
+                if ev.mute_on.any():
+                    mute = mute | row("mute_on")
+                st = st._replace(gossip_mute=mute)
+            if (ev.delay >= 0).any():
+                d = row("delay")
+                st = st._replace(
+                    gossip_delay=torch.where(d >= 0, d, st.gossip_delay))
+            for topic, src, slot, valid in zip(ev.pub_topic, ev.pub_src,
+                                               ev.pub_slot, ev.pub_valid):
+                if src >= 0 and topic >= 0:
+                    st = self.publish(st, min(int(topic), self.t - 1),
+                                      int(src),
+                                      min(max(int(slot), 0), self.m - 1),
+                                      bool(valid))
+            return st
 
     def rollout_events(self, st: MultiTopicState, events: MultiTopicEvents,
                        record: bool = True, rows=None):
@@ -806,26 +826,28 @@ class MultiTopicGossipSub:
         if self.mesh is not None:
             raise NotImplementedError(
                 "rollout_events runs unsharded (mesh=None)")
-        n_steps = int(events.kill.shape[0])
-        rows = rows if rows is not None else _StagedRows(self, events)
-        st = self._widen_indices(st)
-        rounds: List[Dict[str, torch.Tensor]] = []
-        first = st.step + 1
-        for t in range(n_steps):
-            ev = MultiTopicEvents(*(plane[t] for plane in events))
-            st = self._apply_events(st, ev, lambda name: rows.row(name, t))
-            st = self._step_wide(st)
-            if record:
-                rounds.append(self.flight_record_round(st))
-        st = self._narrow_indices(st)
-        if not record:
-            return st, None
-        record_ys = {
-            name: torch.stack([r[name] for r in rounds]) for name in rounds[0]
-        } if rounds else {}
-        record_ys["step"] = torch.arange(first, first + n_steps,
-                                         dtype=torch.int32, device=self.device)
-        return st, self.gs._to_host(record_ys)
+        with span("rollout", st.step):
+            n_steps = int(events.kill.shape[0])
+            rows = rows if rows is not None else _StagedRows(self, events)
+            st = self._widen_indices(st)
+            rounds: List[Dict[str, torch.Tensor]] = []
+            first = st.step + 1
+            for t in range(n_steps):
+                ev = MultiTopicEvents(*(plane[t] for plane in events))
+                st = self._apply_events(st, ev, lambda name: rows.row(name, t))
+                st = self._step_wide(st)
+                if record:
+                    rounds.append(self.flight_record_round(st))
+            st = self._narrow_indices(st)
+            if not record:
+                return st, None
+            record_ys = {
+                name: torch.stack([r[name] for r in rounds])
+                for name in rounds[0]
+            } if rounds else {}
+            record_ys["step"] = torch.arange(
+                first, first + n_steps, dtype=torch.int32, device=self.device)
+            return st, self.gs._to_host(record_ys)
 
     # -- views / metrics ----------------------------------------------------
 
@@ -893,17 +915,18 @@ class MultiTopicGossipSub:
         """Per-slot completion counters for the streaming engine (device
         tensors; ``step`` is the host int).  Unsharded."""
         self._unsharded("the streaming engine")
-        topic_alive = self._topic_alive(st)
-        have = self.have_bool(st)
-        return {
-            "delivered": (have & topic_alive[:, :, None]).sum(
-                dim=1, dtype=torch.int32),                       # [T, M]
-            "participants": topic_alive.sum(dim=1, dtype=torch.int32),
-            "msg_used": st.msg_used,
-            "msg_valid": st.msg_valid,
-            "msg_birth": st.msg_birth,
-            "step": st.step,
-        }
+        with span("stream.digest", st.step):
+            topic_alive = self._topic_alive(st)
+            have = self.have_bool(st)
+            return {
+                "delivered": (have & topic_alive[:, :, None]).sum(
+                    dim=1, dtype=torch.int32),                       # [T, M]
+                "participants": topic_alive.sum(dim=1, dtype=torch.int32),
+                "msg_used": st.msg_used,
+                "msg_valid": st.msg_valid,
+                "msg_birth": st.msg_birth,
+                "step": st.step,
+            }
 
     def stream_deliver_steps(self, st: MultiTopicState, chunk_steps: int,
                              completion_frac: float) -> torch.Tensor:

@@ -40,6 +40,7 @@ from . import cuda_build
 from . import ed25519 as plain
 from .cuda_build import device_index as _index
 from .cuda_build import raise_on as _raise_on
+from ..utils.trace import span
 
 SOURCE = os.path.join(cuda_build.CSRC_DIR, "ed25519_verify.cu")
 LIB_PATH = os.path.join(cuda_build.BUILD_DIR, "libed25519_verify.so")
@@ -144,9 +145,10 @@ def verify(rows: torch.Tensor, ladder: str = "windowed",
     ``ed25519.verify_rows``): rows uint8[B, 128] (A | R | S | k) ->
     bool[B] on the rows' device.  ``ladder="straus"`` is the 1-bit
     window.  The arm follows the batch size (:func:`launch_lanes`)."""
-    if rows.device.type == "cpu":
-        return plain.verify_rows(rows, ladder, window)
-    return _launch(rows, ladder, window, launch_lanes(rows.shape[0]))
+    with span("kernel.e1"):
+        if rows.device.type == "cpu":
+            return plain.verify_rows(rows, ladder, window)
+        return _launch(rows, ladder, window, launch_lanes(rows.shape[0]))
 
 
 def _verify_arm(rows: torch.Tensor, window: int, lanes: int) -> torch.Tensor:

@@ -60,6 +60,7 @@ from .cuda_build import KernelBuildError  # noqa: F401  (re-exported)
 from .cuda_build import device_index as _index
 from .cuda_build import raise_on as _raise_on
 from .gossip_packed import PropagatePackedOut
+from ..utils.trace import span
 
 SOURCE = os.path.join(cuda_build.CSRC_DIR, "gossip_kernels.cu")
 LIB_PATH = os.path.join(cuda_build.BUILD_DIR, "libgossip_kernels.so")
@@ -185,57 +186,59 @@ def propagate(
 ) -> PropagatePackedOut:
     """One eager-push round (kernel K1; same contract as
     ``gossip_packed.propagate_packed``)."""
-    if have_w.device.type == "cpu":
-        return gossip_packed.propagate_packed(
-            mesh, nbrs, edge_live, alive, have_w, fresh_w, valid_w,
-            fresh_src=fresh_src, idontwant=idontwant, idw_have_w=idw_have_w)
-    if have_w.device.type != "cuda":
-        raise ValueError(f"propagate: unsupported device {have_w.device}")
-    n, k = nbrs.shape
-    w = have_w.shape[1]
-    if k > MAX_SLOTS:
-        raise ValueError(f"propagate: K={k} > {MAX_SLOTS} slots per peer")
-    dev = have_w.device
-    for name, t, dt, shape in (
-        ("mesh", mesh, torch.bool, (n, k)),
-        ("nbrs", nbrs, torch.int32, (n, k)),
-        ("edge_live", edge_live, torch.bool, (n, k)),
-        ("alive", alive, torch.bool, (n,)),
-        ("have_w", have_w, torch.int32, (n, w)),
-        ("fresh_w", fresh_w, torch.int32, (n, w)),
-        ("valid_w", valid_w, torch.int32, (w,)),
-    ):
-        _check(name, t, dt, shape, dev)
-    if fresh_src is not None:
-        _check("fresh_src", fresh_src, torch.int32, (n, k, w), dev)
-    idw = None
-    if idontwant:
-        idw = have_w if idw_have_w is None else idw_have_w
-        _check("idw_have_w", idw, torch.int32, (n, w), dev)
-    lib = _load()
-    variant = kernel_variant(w, [
-        (fresh_w if fresh_src is None else fresh_src).data_ptr(),
-        valid_w.data_ptr(), have_w.data_ptr(),
-        None if idw is None else idw.data_ptr()])
-    grid = grid_blocks(n, launch_shape("propagate", variant, k, dev),
-                       sm_count(dev))
-    new = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
-    out = PropagatePackedOut(
-        have_w=new((n, w), torch.int32), fresh_w=new((n, w), torch.int32),
-        new_w=new((n, w), torch.int32), fmd_inc=new((n, k), torch.float32),
-        mmd_inc=new((n, k), torch.float32),
-        invalid_inc=new((n, k), torch.float32),
-    )
-    code = lib.gossip_propagate(
-        _ptr(mesh), _ptr(edge_live), _ptr(nbrs), _ptr(alive), _ptr(have_w),
-        _ptr(fresh_w), _ptr(fresh_src), _ptr(idw), _ptr(valid_w),
-        _ptr(out.have_w), _ptr(out.fresh_w), _ptr(out.new_w),
-        _ptr(out.fmd_inc), _ptr(out.mmd_inc), _ptr(out.invalid_inc),
-        n, k, w, variant, grid, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(code, "gossip_propagate launch")
-    propagate.launches += 1
-    return out
+    with span("kernel.k1"):
+        if have_w.device.type == "cpu":
+            return gossip_packed.propagate_packed(
+                mesh, nbrs, edge_live, alive, have_w, fresh_w, valid_w,
+                fresh_src=fresh_src, idontwant=idontwant,
+                idw_have_w=idw_have_w)
+        if have_w.device.type != "cuda":
+            raise ValueError(f"propagate: unsupported device {have_w.device}")
+        n, k = nbrs.shape
+        w = have_w.shape[1]
+        if k > MAX_SLOTS:
+            raise ValueError(f"propagate: K={k} > {MAX_SLOTS} slots per peer")
+        dev = have_w.device
+        for name, t, dt, shape in (
+            ("mesh", mesh, torch.bool, (n, k)),
+            ("nbrs", nbrs, torch.int32, (n, k)),
+            ("edge_live", edge_live, torch.bool, (n, k)),
+            ("alive", alive, torch.bool, (n,)),
+            ("have_w", have_w, torch.int32, (n, w)),
+            ("fresh_w", fresh_w, torch.int32, (n, w)),
+            ("valid_w", valid_w, torch.int32, (w,)),
+        ):
+            _check(name, t, dt, shape, dev)
+        if fresh_src is not None:
+            _check("fresh_src", fresh_src, torch.int32, (n, k, w), dev)
+        idw = None
+        if idontwant:
+            idw = have_w if idw_have_w is None else idw_have_w
+            _check("idw_have_w", idw, torch.int32, (n, w), dev)
+        lib = _load()
+        variant = kernel_variant(w, [
+            (fresh_w if fresh_src is None else fresh_src).data_ptr(),
+            valid_w.data_ptr(), have_w.data_ptr(),
+            None if idw is None else idw.data_ptr()])
+        grid = grid_blocks(n, launch_shape("propagate", variant, k, dev),
+                           sm_count(dev))
+        new = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)  # noqa: E731
+        out = PropagatePackedOut(
+            have_w=new((n, w), torch.int32), fresh_w=new((n, w), torch.int32),
+            new_w=new((n, w), torch.int32), fmd_inc=new((n, k), torch.float32),
+            mmd_inc=new((n, k), torch.float32),
+            invalid_inc=new((n, k), torch.float32),
+        )
+        code = lib.gossip_propagate(
+            _ptr(mesh), _ptr(edge_live), _ptr(nbrs), _ptr(alive), _ptr(have_w),
+            _ptr(fresh_w), _ptr(fresh_src), _ptr(idw), _ptr(valid_w),
+            _ptr(out.have_w), _ptr(out.fresh_w), _ptr(out.new_w),
+            _ptr(out.fmd_inc), _ptr(out.mmd_inc), _ptr(out.invalid_inc),
+            n, k, w, variant, grid, torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _raise_on(code, "gossip_propagate launch")
+        propagate.launches += 1
+        return out
 
 
 propagate.launches = 0
@@ -256,46 +259,49 @@ def exchange_select(
     same contract as ``gossip_packed.exchange_select``).  The words table
     ``rows`` may hold any number of rows; ``jidx_p`` indexes it (the
     kernel clamps to its row count)."""
-    if rows.device.type == "cpu":
-        return gossip_packed.exchange_select(
-            jidx_p, adv_ok_p, accept_p, serve_p, rows, have_dedup_w, alive,
-            max_ihave, max_iwant)
-    if rows.device.type != "cuda":
-        raise ValueError(f"exchange_select: unsupported device {rows.device}")
-    n, k = jidx_p.shape
-    w = rows.shape[1]
-    if k > MAX_SLOTS:
-        raise ValueError(f"exchange_select: K={k} > {MAX_SLOTS} slots per peer")
-    dev = rows.device
-    for name, t, dt, shape in (
-        ("jidx_p", jidx_p, torch.int32, (n, k)),
-        ("adv_ok_p", adv_ok_p, torch.bool, (n, k)),
-        ("accept_p", accept_p, torch.bool, (n, k)),
-        ("serve_p", serve_p, torch.bool, (n, k)),
-        ("rows", rows, torch.int32, (max(rows.shape[0], 1), w)),
-        ("have_dedup_w", have_dedup_w, torch.int32, (n, w)),
-        ("alive", alive, torch.bool, (n,)),
-    ):
-        _check(name, t, dt, shape, dev)
-    # The kernel's running popcounts are C ints.
-    max_ihave = min(int(max_ihave), 2**31 - 1)
-    max_iwant = min(int(max_iwant), 2**31 - 1)
-    lib = _load()
-    variant = kernel_variant(w, [rows.data_ptr(), have_dedup_w.data_ptr()])
-    grid = grid_blocks(n, launch_shape("exchange", variant, k, dev),
-                       sm_count(dev))
-    pend = torch.empty((n, w), dtype=torch.int32, device=dev)
-    broken_p = torch.empty((n, k), dtype=torch.float32, device=dev)
-    code = lib.gossip_exchange(
-        _ptr(jidx_p), _ptr(adv_ok_p), _ptr(accept_p), _ptr(serve_p),
-        _ptr(rows), _ptr(have_dedup_w), _ptr(alive), _ptr(pend),
-        _ptr(broken_p), n, rows.shape[0], k, w, max_ihave, max_iwant,
-        variant, grid,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(code, "gossip_exchange launch")
-    exchange_select.launches += 1
-    return pend, broken_p
+    with span("kernel.k2"):
+        if rows.device.type == "cpu":
+            return gossip_packed.exchange_select(
+                jidx_p, adv_ok_p, accept_p, serve_p, rows, have_dedup_w, alive,
+                max_ihave, max_iwant)
+        if rows.device.type != "cuda":
+            raise ValueError(
+                f"exchange_select: unsupported device {rows.device}")
+        n, k = jidx_p.shape
+        w = rows.shape[1]
+        if k > MAX_SLOTS:
+            raise ValueError(
+                f"exchange_select: K={k} > {MAX_SLOTS} slots per peer")
+        dev = rows.device
+        for name, t, dt, shape in (
+            ("jidx_p", jidx_p, torch.int32, (n, k)),
+            ("adv_ok_p", adv_ok_p, torch.bool, (n, k)),
+            ("accept_p", accept_p, torch.bool, (n, k)),
+            ("serve_p", serve_p, torch.bool, (n, k)),
+            ("rows", rows, torch.int32, (max(rows.shape[0], 1), w)),
+            ("have_dedup_w", have_dedup_w, torch.int32, (n, w)),
+            ("alive", alive, torch.bool, (n,)),
+        ):
+            _check(name, t, dt, shape, dev)
+        # The kernel's running popcounts are C ints.
+        max_ihave = min(int(max_ihave), 2**31 - 1)
+        max_iwant = min(int(max_iwant), 2**31 - 1)
+        lib = _load()
+        variant = kernel_variant(w, [rows.data_ptr(), have_dedup_w.data_ptr()])
+        grid = grid_blocks(n, launch_shape("exchange", variant, k, dev),
+                           sm_count(dev))
+        pend = torch.empty((n, w), dtype=torch.int32, device=dev)
+        broken_p = torch.empty((n, k), dtype=torch.float32, device=dev)
+        code = lib.gossip_exchange(
+            _ptr(jidx_p), _ptr(adv_ok_p), _ptr(accept_p), _ptr(serve_p),
+            _ptr(rows), _ptr(have_dedup_w), _ptr(alive), _ptr(pend),
+            _ptr(broken_p), n, rows.shape[0], k, w, max_ihave, max_iwant,
+            variant, grid,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _raise_on(code, "gossip_exchange launch")
+        exchange_select.launches += 1
+        return pend, broken_p
 
 
 exchange_select.launches = 0

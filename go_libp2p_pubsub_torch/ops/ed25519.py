@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..crypto.ed25519_ref import D as _D_INT, L as _L_INT, P as _P_INT, _BX, _BY
+from ..utils.trace import span
 
 LIMBS = 22
 BITS = 12
@@ -528,34 +529,37 @@ def prepare_rows(
     bool[n]).  Row i holds A, R, S and k = SHA512(R || A || M) mod L;
     ``host_ok`` is S < L, y_A < p and y_R < p.  Rows n..b-1 are zero
     padding (``pad_to``, default the next power of two)."""
-    n = len(pks)
-    pk_rows = np.frombuffer(b"".join(pks), np.uint8).reshape(n, 32)
-    sig_rows = np.frombuffer(b"".join(sigs), np.uint8).reshape(n, 64)
-    r_rows, s_rows = sig_rows[:, :32], sig_rows[:, 32:]
+    with span("validate.prepare_rows"):
+        n = len(pks)
+        pk_rows = np.frombuffer(b"".join(pks), np.uint8).reshape(n, 32)
+        sig_rows = np.frombuffer(b"".join(sigs), np.uint8).reshape(n, 64)
+        r_rows, s_rows = sig_rows[:, :32], sig_rows[:, 32:]
 
-    # Host-side canonicity: S < L, y_A < p, y_R < p (cheap big-int checks).
-    host_ok = np.ones(n, bool)
-    for i in range(n):
-        s_int = int.from_bytes(s_rows[i].tobytes(), "little")
-        y_a = int.from_bytes(pk_rows[i].tobytes(), "little") & ((1 << 255) - 1)
-        y_r = int.from_bytes(r_rows[i].tobytes(), "little") & ((1 << 255) - 1)
-        host_ok[i] = (s_int < _L_INT) and (y_a < _P_INT) and (y_r < _P_INT)
+        # Host-side canonicity: S < L, y_A < p, y_R < p (cheap big-int checks).
+        host_ok = np.ones(n, bool)
+        for i in range(n):
+            s_int = int.from_bytes(s_rows[i].tobytes(), "little")
+            y_a = (int.from_bytes(pk_rows[i].tobytes(), "little")
+                   & ((1 << 255) - 1))
+            y_r = (int.from_bytes(r_rows[i].tobytes(), "little")
+                   & ((1 << 255) - 1))
+            host_ok[i] = (s_int < _L_INT) and (y_a < _P_INT) and (y_r < _P_INT)
 
-    # k = SHA512(R || A || M) mod L, host-hashed.
-    k_rows = np.zeros((n, 32), np.uint8)
-    for i in range(n):
-        d = hashlib.sha512(
-            r_rows[i].tobytes() + pk_rows[i].tobytes() + msgs[i]
-        ).digest()
-        k = int.from_bytes(d, "little") % _L_INT
-        k_rows[i] = np.frombuffer(k.to_bytes(32, "little"), np.uint8)
+        # k = SHA512(R || A || M) mod L, host-hashed.
+        k_rows = np.zeros((n, 32), np.uint8)
+        for i in range(n):
+            d = hashlib.sha512(
+                r_rows[i].tobytes() + pk_rows[i].tobytes() + msgs[i]
+            ).digest()
+            k = int.from_bytes(d, "little") % _L_INT
+            k_rows[i] = np.frombuffer(k.to_bytes(32, "little"), np.uint8)
 
-    b = pad_to or max(1, 1 << (n - 1).bit_length())
-    if b < n:
-        raise ValueError(f"pad_to ({b}) smaller than batch ({n})")
-    rows = np.zeros((b, ROW_BYTES), np.uint8)
-    rows[:n] = np.concatenate([pk_rows, r_rows, s_rows, k_rows], axis=1)
-    return rows, host_ok
+        b = pad_to or max(1, 1 << (n - 1).bit_length())
+        if b < n:
+            raise ValueError(f"pad_to ({b}) smaller than batch ({n})")
+        rows = np.zeros((b, ROW_BYTES), np.uint8)
+        rows[:n] = np.concatenate([pk_rows, r_rows, s_rows, k_rows], axis=1)
+        return rows, host_ok
 
 
 def verify_batch(

@@ -29,6 +29,7 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils.trace import span
 from .fma import fma
 
 _M32 = 0xFFFFFFFF
@@ -113,9 +114,10 @@ def _hash(key: torch.Tensor, shape, row_offset: int = 0
 
 def split(key: torch.Tensor, num: Union[int, Sequence[int]] = 2) -> torch.Tensor:
     """``jax.random.split``: int32[2] key -> int32[num, 2] new keys."""
-    shape = (num,) if isinstance(num, int) else tuple(num)
-    b1, b2 = _hash(key, shape)
-    return _i32(torch.stack([b1, b2], dim=-1))
+    with span("rng.split"):
+        shape = (num,) if isinstance(num, int) else tuple(num)
+        b1, b2 = _hash(key, shape)
+        return _i32(torch.stack([b1, b2], dim=-1))
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
@@ -136,20 +138,22 @@ def uniform(
 ) -> torch.Tensor:
     """``jax.random.uniform`` in float32: the top 23 random bits become the
     mantissa of a float in [1, 2), minus 1, scaled into [minval, maxval)."""
-    shape = tuple(int(d) for d in shape)
-    b1, b2 = _hash(key, shape)
-    bits = _i32(((b1 ^ b2) >> 9) | 0x3F800000)
-    floats = bits.view(torch.float32) - 1.0
-    # The bounds as float32 values held in Python floats: scalars reach the
-    # kernels as arguments, with no host-to-device copy.
-    lo = float(np.float32(minval))
-    span = float(np.float32(maxval) - np.float32(minval))
-    # jax's ``floats * (maxval - minval) + minval`` is contracted into one
-    # fused multiply-add by XLA's CPU backend; with minval == 0 (every draw
-    # of the model) a plain float32 multiply rounds identically.
-    if minval == 0.0:
-        return torch.clamp(floats * span, min=lo)
-    return torch.clamp(fma(floats, span, lo), min=lo)
+    with span("rng.uniform"):
+        shape = tuple(int(d) for d in shape)
+        b1, b2 = _hash(key, shape)
+        bits = _i32(((b1 ^ b2) >> 9) | 0x3F800000)
+        floats = bits.view(torch.float32) - 1.0
+        # The bounds as float32 values held in Python floats: scalars reach the
+        # kernels as arguments, with no host-to-device copy.
+        lo = float(np.float32(minval))
+        width = float(np.float32(maxval) - np.float32(minval))
+        # jax's ``floats * (maxval - minval) + minval`` is contracted into
+        # one fused multiply-add by XLA's CPU backend; with minval == 0
+        # (every draw of the model) a plain float32 multiply rounds
+        # identically.
+        if minval == 0.0:
+            return torch.clamp(floats * width, min=lo)
+        return torch.clamp(fma(floats, width, lo), min=lo)
 
 
 def _bits_rows(key: torch.Tensor, rows: torch.Tensor, inner) -> torch.Tensor:

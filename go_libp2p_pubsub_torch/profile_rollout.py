@@ -12,18 +12,18 @@ warm ``rollout(24, record=True)``, then, from the same state each time:
 - three unprofiled rollouts: wall time (host clock, ending in a
   synchronise);
 - one rollout traced with CUDA activity only (no CPU operator tracing, so
-  the host runs at nearly its unprofiled pace): its wall time, the device
-  busy time (the union of its kernels' and copies' intervals on the card)
-  and the idle share ``1 - busy / wall``, all of that one rollout, plus
-  the kernel launches per round, the kernels that take the most time and
-  the launches and device time of the port's own two kernels;
-- one rollout traced with CPU and CUDA activity, with
-  ``record_function`` ranges around the PRNG (``rng.split``,
-  ``rng.uniform``), the round's two halves (``_propagate``,
-  ``_heartbeat``), the flight recorder and the port's two kernel wrappers
-  (``gossip_propagate``, ``gossip_exchange``): the device time of the
-  kernels launched inside each range (ranges nest: the PRNG's time is also
-  inside ``_heartbeat``'s, K1's inside ``_propagate``'s);
+  the host runs at nearly its unprofiled pace) and the program's spans
+  recorded (``utils.trace.set_recorder``): its wall time, the device busy
+  time (the union of its kernels' and copies' intervals on the card) and
+  the idle share ``1 - busy / wall``, the kernel launches per round, the
+  kernels that take the most time and the launches and device time of
+  the port's own two kernels (``port_kernels``); the device time of the
+  kernels launched inside each program span (``ranges``: a kernel counts
+  in every span open on the host when its launch call ran, the launch
+  found through the trace's correlation id; spans nest, so K1's time is
+  also in ``round.propagate``'s and ``rollout``'s); and the device's idle
+  gaps, each named by the innermost span open on the host at the gap's
+  midpoint (``idle_by_span``: the total by span and the 10 longest);
 - one rollout under ``torch.cuda.set_sync_debug_mode("warn")``: every
   operation that synchronises the host with the device, by message (a
   round must have none before it can be captured as a CUDA graph).
@@ -31,18 +31,21 @@ warm ``rollout(24, record=True)``, then, from the same state each time:
 With ``--campaign`` the same readings are of the composite attack
 campaign of ``scenario/traces/campaign_100000.trace.json`` (scaled to
 ``--peers``): its compiled state and event rows, and
-``rollout_events(record=True)`` over its 48 rounds, with two more ranges,
-the event application before each round (``_apply_events``, publishes
-included) and the adversary channels (``_campaign_record``).
+``rollout_events(record=True)`` over its 48 rounds, whose spans add the
+event application before each round (``round.events``, publishes
+included) and the adversary channels (``round.campaign_record``).
 
 With ``--serve`` the readings are of one serving chunk at ``--peers``:
 the streaming engine of ``serve/stream_trace.py``'s configuration (2
 topics, chunks of 8 rounds x 8 publishes), warmed, and each run pushes 8
-messages to its ring and runs one ``run_chunk``.  The ranges are the
-single-topic round each topic runs (``_propagate``, one call a topic a
-round), the multi-topic ``_heartbeat``, the recorder's recount of the
-chunk's last round (``flight_record_round``), the publishes
-(``publish``) and the completion digest (``stream_digest``).
+messages to its ring and runs one ``run_chunk``.  Its spans are the
+single-topic round each topic runs (``round.propagate``, one a topic a
+round), the multi-topic ``round.heartbeat``, the recorder's recount of
+the chunk's last round (``round.record``), the publishes (``publish``)
+and the completion digest (``stream.digest``).
+
+``--trace-out PATH`` writes the traced run's Chrome trace with the spans
+on a track of their own (``utils.trace.add_spans_to_trace``).
 
 Prints one JSON object.  Needs a CUDA card.
 
@@ -53,23 +56,23 @@ heartbeat cycle (``round_cycle``, divided by the heartbeat period into
 ``round_amortized``), ``propagate`` (K1) and ``heartbeat``, and the
 heartbeat's parts re-run on the state it sees -- ``hb_scores``,
 ``hb_mesh``, ``hb_px``, the scores/mesh/PX prologue unfused and fused,
-``hb_gossip`` (the IHAVE/IWANT exchange, K2) and ``hb_fanout``.  Each is
-the mean of ``--reps`` runs after a warm one, timed through
-``utils.trace.StepTimer`` (host clock, ending in a synchronise of the
-card); ``--trace-out`` writes the timer's Chrome trace.  It runs on
-``--device`` (default ``cuda``).
+``hb_gossip`` (the IHAVE/IWANT exchange, K2) and ``hb_fanout`` (the
+parts a rollout records as the spans ``heartbeat.scores`` ...
+``heartbeat.fanout``).  Each is the mean of ``--reps`` runs after a warm
+one, timed through ``utils.trace.StepTimer`` (host clock, ending in a
+synchronise of the card); ``--trace-out`` writes the timer's Chrome
+trace.  It runs on ``--device`` (default ``cuda``).
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
-import functools
+import bisect
 import json
 import time
 import warnings
-from collections import Counter
-from typing import Optional
+from collections import Counter, defaultdict
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,14 +80,13 @@ import torch
 from .models.gossipsub import GossipSub, resolve_device
 from .ops import cuda_gossip
 from .ops import rng as rng_ops
+from .utils import trace
 
 ROUNDS = 24
-RNG_RANGES = ("split", "uniform")
-MODEL_RANGES = ("_propagate", "_heartbeat", "flight_record_round")
-CAMPAIGN_RANGES = ("_apply_events", "_campaign_record")
-# range label -> (wrapper in ops/cuda_gossip.py, its kernel's name)
-PORT_KERNELS = {"gossip_propagate": ("propagate", "propagate_kernel"),
-                "gossip_exchange": ("exchange_select", "exchange_kernel")}
+# span of the port kernel's entry -> its kernel's name in the trace
+PORT_KERNELS = {"kernel.k1": "propagate_kernel",
+                "kernel.k2": "exchange_kernel"}
+IDLE_GAPS = 10
 
 
 def _state(gs: GossipSub, n_msgs: int = 128, n_forged: int = 4):
@@ -97,40 +99,35 @@ def _state(gs: GossipSub, n_msgs: int = 128, n_forged: int = 4):
 
 
 def _closed_loop(dev, n_peers: int):
-    """(model, one recorded rollout, rounds) of the headline closed loop."""
+    """(one recorded rollout, rounds) of the headline closed loop."""
     gs = GossipSub(n_peers=n_peers, n_slots=32, conn_degree=16,
                    msg_window=128, device=dev)
     st = _state(gs)
-    return gs, lambda: gs.rollout(st, ROUNDS, record=True), ROUNDS
+    return lambda: gs.rollout(st, ROUNDS, record=True), ROUNDS
 
 
 def _campaign(dev, n_peers: int):
-    """(model, one recorded ``rollout_events``, rounds) of the composite
-    campaign at ``n_peers``."""
+    """(one recorded ``rollout_events``, rounds) of the composite campaign
+    at ``n_peers``."""
     from .scenario import compile_scenario
     from .scenario.campaign import campaign_spec
 
     comp = compile_scenario(campaign_spec(n_peers), device=dev)
-    gs = comp.model
-    return gs, lambda: gs.rollout_events(
+    return lambda: comp.model.rollout_events(
         comp.state, comp.events, attackers=comp.attackers,
         target=comp.target, record=True), comp.spec.n_steps
 
 
 def _serve(dev, n_peers: int):
-    """(model, one loaded serving chunk, rounds) at ``n_peers``."""
+    """(one loaded serving chunk, rounds) at ``n_peers``."""
     from .models.multitopic import MultiTopicGossipSub
     from .serve import IngestRing, StreamingEngine
     from .serve import stream_trace as S
-    from .serve.engine import _program
 
     model = MultiTopicGossipSub(device=dev, **dict(S.CONFIG, n_peers=n_peers))
     ring = IngestRing(capacity=S.CAPACITY, policy="block")
     eng = StreamingEngine(model, ring, seed=0, **S.ENGINE)
     eng.warmup()
-    # The ranges go on the model the prepared program runs: an equal model
-    # prepared earlier in the process owns it.
-    model = _program(model, eng.chunk_steps, eng.pub_width).model
     pushed = [0]
 
     def run():
@@ -140,20 +137,7 @@ def _serve(dev, n_peers: int):
             ring.push(topic=j % model.t, payload=b"profile %d" % j,
                       publisher=(j * 7919) % n_peers)
         eng.run_chunk()
-    return model, run, S.ENGINE["chunk_steps"]
-
-
-# The ranges of each path: (owner of the method, its name, label).
-def _model_targets(gs, names):
-    return [(gs, name, name) for name in names]
-
-
-def _serve_targets(model):
-    return [(model.gs, "_propagate", "_propagate"),
-            (model, "_heartbeat", "_heartbeat"),
-            (model, "flight_record_round", "flight_record_round"),
-            (model, "publish", "publish"),
-            (model, "stream_digest", "stream_digest")]
+    return run, S.ENGINE["chunk_steps"]
 
 
 def _timed(run) -> float:
@@ -163,152 +147,129 @@ def _timed(run) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def _busy_ms(events) -> float:
-    """Union of the device intervals (µs) of ``events``, in ms."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, end = 0, None
-    for s, e in spans:
-        if end is None or s >= end:
-            busy += e - s
-            end = e
-        elif e > end:
-            busy += e - end
-            end = e
-    return busy / 1e3
+def _union(intervals) -> List[Tuple[int, int]]:
+    merged: List[List[int]] = []
+    for a, b in sorted(intervals):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return [(a, b) for a, b in merged]
 
 
-@contextlib.contextmanager
-def _ranges(targets):
-    """Wrap the PRNG's functions, the kernel wrappers and the model methods
-    ``targets`` ((object, method name, label) each) in ``record_function``
-    ranges for the length of the block."""
-    from torch.profiler import record_function
-
-    def wrap(label, fn):
-        @functools.wraps(fn)  # carries a wrapper's launch count along
-        def ranged(*a, **kw):
-            with record_function(label):
-                return fn(*a, **kw)
-        return ranged
-
-    saved = [(rng_ops, name, f"rng.{name}") for name in RNG_RANGES]
-    saved += [(cuda_gossip, fn, label)
-              for label, (fn, _) in PORT_KERNELS.items()]
-    saved = [(module, name, label, getattr(module, name))
-             for module, name, label in saved]
-    for module, name, label, fn in saved:
-        setattr(module, name, wrap(label, fn))
-    for obj, name, label in targets:
-        setattr(obj, name, wrap(label, getattr(obj, name)))
-    try:
-        yield [label for _, _, label, _ in saved] + [
-            label for _, _, label in targets]
-    finally:
-        for module, name, _, fn in saved:
-            if hasattr(fn, "launches"):
-                fn.launches = getattr(module, name).launches
-            setattr(module, name, fn)
-        for obj, name, _ in targets:
-            delattr(obj, name)
+def _trace_events(prof):
+    """A finished ``torch.profiler`` session -> (device events, launches):
+    device events as (name, correlation id, start ns, end ns), kernels and
+    copies alike; launches as {correlation id: host start ns} of the CUDA
+    API calls (``cudaLaunchKernel``, ``cudaMemcpyAsync``, ``cuLaunch...``)
+    that queued them.  Stamps are on the profiler's host clock, the one
+    program spans are stamped on."""
+    device, launches = [], {}
+    for e in prof.profiler.kineto_results.events():
+        if "cuda" in str(e.device_type()).lower():
+            if e.duration_ns() > 0:
+                device.append((e.name(), e.correlation_id(), e.start_ns(),
+                               e.start_ns() + e.duration_ns()))
+        elif e.name().startswith("cu") and e.correlation_id():
+            launches[e.correlation_id()] = e.start_ns()
+    return device, launches
 
 
-def _kernel_events(events, kernel: str) -> list:
-    """Device events of the port's kernel ``kernel``, in start order."""
-    from torch.autograd import DeviceType
+def _range_device_ms(device, launches, spans) -> Dict[str, dict]:
+    """Device ms of the kernels launched inside each program span: a
+    kernel counts once in every span name open on the host at its launch
+    call's stamp (the launch found by correlation id), and in none when
+    the trace holds no launch call for it.  -> {span name: {device_ms,
+    calls}}."""
+    by_name: Dict[str, list] = defaultdict(list)
+    for r in spans:
+        if r is not None:
+            by_name[r[0]].append((r[1], r[2]))
+    timed = sorted((launches[c], (b - a) / 1e6) for _, c, a, b in device
+                   if c in launches)
+    stamps = [t for t, _ in timed]
+    prefix = np.concatenate([[0.0], np.cumsum([ms for _, ms in timed])])
+    ranges = {}
+    for name, intervals in sorted(by_name.items()):
+        ms = 0.0
+        for a, b in _union(intervals):   # a kernel counts once a name
+            ms += (prefix[bisect.bisect_right(stamps, b)]
+                   - prefix[bisect.bisect_left(stamps, a)])
+        ranges[name] = {"device_ms": float(ms), "calls": len(intervals)}
+    return ranges
 
-    return sorted((e for e in events if e.device_type == DeviceType.CUDA
-                   and kernel in e.name), key=lambda e: e.time_range.start)
 
-
-def _range_device_ms(events, labels):
-    """Device ms of the kernels launched inside each range, counting an
-    outermost occurrence only (a range nested in one of its own name is
-    already inside its parent's total); and, per port kernel, its launches
-    and how many of them the trace links to a CPU event.
-
-    A range's total holds the kernels the trace links to the CPU events
-    inside it.  The port's kernels are launched through ctypes, not by an
-    aten op; where the trace links none of a kernel's launches, they are
-    matched in order with the calls of its wrapper's range (one launch a
-    call, on one stream) and added to every range around each call."""
-    from torch.autograd import DeviceType
-
-    out = {label: 0.0 for label in labels}
-    calls = Counter()
-    cpu = [e for e in events if e.device_type == DeviceType.CPU]
-    for e in cpu:
-        if e.name not in out:
+def _idle_by_span(device, spans, w0: int, w1: int) -> dict:
+    """The device's idle time in the host window [w0, w1] (ns), each gap
+    named by the innermost span (the shortest) open on the host at the
+    gap's midpoint, ``outside_spans`` where none is: the total ms by span
+    and the ``IDLE_GAPS`` longest gaps."""
+    busy = _union((max(a, w0), min(b, w1)) for _, _, a, b in device
+                  if b > w0 and a < w1)
+    closed = [r for r in spans if r is not None]
+    names = [r[0] for r in closed]
+    start = np.array([r[1] for r in closed], np.int64)
+    end = np.array([r[2] for r in closed], np.int64)
+    length = (end - start).astype(np.float64)
+    edges = [w0] + [x for a, b in busy for x in (a, b)] + [w1]
+    total: Dict[str, float] = defaultdict(float)
+    gaps = []
+    for a, b in zip(edges[0::2], edges[1::2]):
+        if b <= a:
             continue
-        parent = e.cpu_parent
-        while parent is not None and parent.name != e.name:
-            parent = parent.cpu_parent
-        if parent is None:
-            out[e.name] += e.device_time_total / 1e3
-            calls[e.name] += 1
-    port = {}
-    for label, (_, kernel) in PORT_KERNELS.items():
-        launched = _kernel_events(events, kernel)
-        linked = sum(kernel in k.name for e in cpu for k in e.kernels)
-        port[label] = {"launches": len(launched), "linked": linked}
-        if linked == len(launched):
-            continue
-        wrapper = sorted((e for e in cpu if e.name == label),
-                         key=lambda e: e.time_range.start)
-        if linked or len(wrapper) != len(launched):
-            raise SystemExit(
-                f"{label}: {len(launched)} launches, {linked} linked to CPU "
-                f"events, {len(wrapper)} wrapper calls: cannot attribute")
-        for call, k in zip(wrapper, launched):
-            around, parent = set(), call
-            while parent is not None:
-                around.add(parent.name)
-                parent = parent.cpu_parent
-            for name in around & out.keys():
-                out[name] += k.time_range.elapsed_us() / 1e3
-    return ({label: {"device_ms": out[label], "calls": calls[label]}
-             for label in labels}, port)
+        mid = (a + b) // 2
+        open_ = np.where((start <= mid) & (mid <= end), length, np.inf)
+        name = (names[int(np.argmin(open_))]
+                if closed and np.isfinite(open_.min()) else "outside_spans")
+        total[name] += (b - a) / 1e6
+        gaps.append((name, (b - a) / 1e6))
+    gaps.sort(key=lambda g: -g[1])
+    return {"total_ms": dict(sorted(total.items(), key=lambda kv: -kv[1])),
+            "longest": [[n, ms] for n, ms in gaps[:IDLE_GAPS]]}
 
 
-def profile(n_peers: int, campaign: bool = False,
-            serve: bool = False) -> dict:
+def profile(n_peers: int, campaign: bool = False, serve: bool = False,
+            trace_out: Optional[str] = None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_rollout needs a CUDA card")
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     dev = torch.device("cuda", 0)
     build = _serve if serve else _campaign if campaign else _closed_loop
-    gs, run, rounds = build(dev, n_peers)
+    run, rounds = build(dev, n_peers)
     _timed(run)
     unprofiled_ms = [_timed(run) for _ in range(3)]
 
-    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall_ms = _timed(run)
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    timer = trace.StepTimer()
+    before = trace.set_recorder(timer)
+    try:
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            w0 = time.time_ns()
+            wall_ms = _timed(run)
+            w1 = time.time_ns()
+    finally:
+        trace.set_recorder(before)
+    device, launches = _trace_events(prof)
     if not device:
         raise SystemExit("the CUDA trace holds no device events")
-    busy_ms = _busy_ms(device)
+    busy_ms = sum(b - a for a, b in _union(
+        (a, b) for _, _, a, b in device)) / 1e6
     by_name: Counter = Counter()
-    for e in device:
-        by_name[e.name] += e.time_range.elapsed_us() / 1e3
-    top = [{"kernel": name[:90], "ms": ms} for name, ms in by_name.most_common(12)]
+    for name, _, a, b in device:
+        by_name[name] += (b - a) / 1e6
+    top = [{"kernel": name[:90], "ms": ms}
+           for name, ms in by_name.most_common(12)]
     port_kernels = {}
-    for label, (_, kernel) in PORT_KERNELS.items():
-        launched = _kernel_events(device, kernel)
+    for label, kernel in PORT_KERNELS.items():
+        ks = [(c, a, b) for n, c, a, b in device if kernel in n]
         port_kernels[label] = {
-            "launches": len(launched),
-            "device_ms": sum(e.time_range.elapsed_us() for e in launched) / 1e3}
-
-    targets = (_serve_targets(gs) if serve else _model_targets(
-        gs, MODEL_RANGES + (CAMPAIGN_RANGES if campaign else ())))
-    with _ranges(targets) as labels:
-        with torch_profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA]) as prof_ranges:
-            _timed(run)
-    ranges, linked = _range_device_ms(prof_ranges.events(), labels)
-    for label, seen in linked.items():
-        port_kernels[label]["linked_in_range_trace"] = seen
+            "launches": len(ks),
+            "device_ms": sum(b - a for _, a, b in ks) / 1e6,
+            "linked_to_launch": sum(c in launches for c, _, _ in ks)}
+    if trace_out is not None:
+        prof.export_chrome_trace(trace_out)
+        trace.add_spans_to_trace(trace_out, timer)
 
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -333,7 +294,11 @@ def profile(n_peers: int, campaign: bool = False,
         "device_ops_per_round": len(device) / rounds,
         "top_kernels": top,
         "port_kernels": port_kernels,
-        "ranges": ranges,
+        "ranges": _range_device_ms(device, launches, timer.spans),
+        "unlinked_device_events": sum(c not in launches
+                                      for _, c, _, _ in device),
+        "spans_dropped": timer.dropped,
+        "idle_by_span": _idle_by_span(device, timer.spans, w0, w1),
         "host_syncs_in_rollout": dict(syncs),
     }
 
@@ -522,12 +487,14 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="where --phases runs (default cuda)")
     ap.add_argument("--trace-out", metavar="PATH",
-                    help="with --phases, write the timer's Chrome trace")
+                    help="write the traced run's Chrome trace with the "
+                    "program's spans (with --phases, the timer's)")
     args = ap.parse_args(argv)
     if args.phases:
         phases(args.peers, args.device, args.trace_out)
         return
-    print(json.dumps(profile(args.peers, args.campaign, args.serve)))
+    print(json.dumps(profile(args.peers, args.campaign, args.serve,
+                             args.trace_out)))
 
 
 if __name__ == "__main__":

@@ -6,6 +6,18 @@ on, the counterpart of ``jax.block_until_ready``), a ``torch.profiler``
 capture written as a Chrome trace (``profiler_trace``, the counterpart of
 the reference's ``xla_trace``), and the tree and mesh exports, which read
 the port's tensors back to numpy.
+
+Beside those, the port's own spans (the JAX package has none): the
+program marks its layer boundaries with ``with span("round.propagate",
+st.step):``.  While no recorder is set (the default) a span is one shared
+object that reads no clock and calls nothing.  ``set_recorder(timer)``
+makes a :class:`StepTimer` the process's recorder: from then on each span
+appends its name, its start and end on ``time.time_ns()`` (the host clock
+of ``torch.profiler``'s events, so a span lines up with a profiled
+window), the span open when it opened and the round, to
+``timer.spans``.  A span never synchronises the device: it times the host
+(enqueueing, launches, and any synchronisation the code does itself), and
+it adds no event to a running profiler.
 """
 
 from __future__ import annotations
@@ -13,6 +25,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import threading
 import time
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
@@ -63,6 +76,14 @@ class StepTimer:
         self.events: List[Tuple[str, float, float]] = []
         self._epoch = time.perf_counter()
         self._fence_val: Any = None
+        # The program's spans while this timer is the recorder
+        # (``set_recorder``): (name, start ns, end ns, parent's index or
+        # -1, round or None) in opening order; None while still open.
+        # Past ``SPAN_CAPACITY`` spans are counted in ``dropped`` only.
+        self.spans: List[Optional[SpanRecord]] = []
+        self.dropped = 0
+        self._open: Dict[int, int] = {}   # thread -> innermost open span
+        self._span_lock = threading.Lock()
 
     def fence(self, value: Any) -> Any:
         """Mark ``value`` to be synchronised when the phase closes."""
@@ -116,6 +137,118 @@ class StepTimer:
         return json.dumps(
             {"traceEvents": events, "displayTimeUnit": "ms"}, sort_keys=True
         )
+
+    def span_seconds(self, name: str) -> List[float]:
+        """Host seconds of each closed span ``name``, in opening order."""
+        return [(r[2] - r[1]) * 1e-9 for r in self.spans
+                if r is not None and r[0] == name]
+
+
+# -- the program's spans --------------------------------------------------------
+
+# (name, start ns, end ns, parent's index in ``StepTimer.spans`` or -1,
+# the round ``st.step`` or None), stamps on ``time.time_ns()``.
+SpanRecord = Tuple[str, int, int, int, Optional[int]]
+SPAN_CAPACITY = 1 << 20
+
+_recorder: Optional[StepTimer] = None
+
+
+def set_recorder(timer: Optional[StepTimer]) -> Optional[StepTimer]:
+    """Make ``timer`` the process's span recorder (None: spans off again);
+    returns the one it replaces."""
+    global _recorder
+    before, _recorder = _recorder, timer
+    return before
+
+
+def recorder() -> Optional[StepTimer]:
+    """The process's span recorder, or None."""
+    return _recorder
+
+
+class _Off:
+    """What :func:`span` returns with no recorder: one shared object."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("timer", "name", "step", "index", "parent", "start")
+
+    def __init__(self, timer: StepTimer, name: str, step: Optional[int]):
+        self.timer, self.name, self.step = timer, name, step
+
+    def __enter__(self) -> None:
+        t = self.timer
+        with t._span_lock:   # the live plane flushes from several threads
+            self.index = len(t.spans)
+            if self.index >= SPAN_CAPACITY:
+                t.dropped += 1
+                return
+            t.spans.append(None)
+        tid = threading.get_ident()
+        self.parent = t._open.get(tid, -1)
+        t._open[tid] = self.index
+        self.start = time.time_ns()
+
+    def __exit__(self, *exc) -> bool:
+        end = time.time_ns()
+        if self.index < SPAN_CAPACITY:
+            t = self.timer
+            t.spans[self.index] = (self.name, self.start, end, self.parent,
+                                   self.step)
+            t._open[threading.get_ident()] = self.parent
+        return False
+
+
+def span(name: str, step: Optional[int] = None):
+    """A context manager marking one layer boundary of the program:
+    ``with span("round.heartbeat", st.step): ...``.  ``step`` is the
+    round, where the site holds it as a host int.  Records into the
+    process's recorder (:func:`set_recorder`); with none, it returns one
+    shared no-op object and reads nothing."""
+    timer = _recorder
+    if timer is None:
+        return _OFF
+    return _Span(timer, name, step)
+
+
+def add_spans_to_trace(path: str, timer: StepTimer) -> int:
+    """Write ``timer``'s closed spans into the Chrome trace at ``path`` (a
+    ``profiler_trace`` capture, whose event times count from its
+    ``baseTimeNanoseconds``) as "X" events on a track of their own, with
+    the round and the parent in ``args``, so both load on one timeline;
+    returns the number of spans written."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    pid, tid = os.getpid(), 0
+    events: List[dict] = [
+        {"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+         "args": {"name": "program spans"}}]
+    for i, r in enumerate(timer.spans):
+        if r is None:
+            continue
+        name, start, end, parent, step = r
+        events.append({
+            "name": name, "cat": "program_span", "ph": "X",
+            "ts": (start - base) / 1e3, "dur": (end - start) / 1e3,
+            "pid": pid, "tid": tid,
+            "args": {"index": i, "parent": parent, "step": step}})
+    doc.setdefault("traceEvents", []).extend(events)
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return len(events) - 1
 
 
 @contextlib.contextmanager

@@ -1,80 +1,128 @@
-"""How ``profile_rollout`` attributes device time to its ranges, on a
-hand-built trace: kernels the trace links to a CPU event count in every
-range around that event, and the port's ctypes-launched kernels, which a
-trace may link to nothing, count in the ranges around their wrapper's
-call, matched in launch order."""
+"""How ``profile_rollout`` puts device time down to the program's spans,
+on a hand-built trace: a kernel counts in every span open on the host at
+its launch call's stamp (found through the correlation id), once a name;
+an idle gap goes to the innermost span open at its midpoint."""
 
 from types import SimpleNamespace
 
 import pytest
-from torch.autograd import DeviceType
 
-from go_libp2p_pubsub_torch.profile_rollout import _range_device_ms
+from go_libp2p_pubsub_torch.profile_rollout import (
+    _idle_by_span, _range_device_ms, _trace_events)
 
-LABELS = ["gossip_propagate", "gossip_exchange", "_propagate", "_heartbeat"]
-
-
-def _cpu(name, start, parent=None, kernels=()):
-    """A CPU range; ``kernels`` are (name, µs) the trace links to it."""
-    e = SimpleNamespace(
-        name=name, device_type=DeviceType.CPU, cpu_parent=parent,
-        cpu_children=[], time_range=SimpleNamespace(start=start),
-        kernels=[SimpleNamespace(name=k, duration=us) for k, us in kernels])
-    if parent is not None:
-        parent.cpu_children.append(e)
-    return e
+US = 1000   # ns
 
 
-def _total(e):
-    return (sum(k.duration for k in e.kernels)
-            + sum(_total(c) for c in e.cpu_children))
+def _spans():
+    """A rollout (0-1000 µs) of two rounds (K1 launched at 110 and 410
+    µs) and a heartbeat (600-900 µs, K2 launched at 700 µs) whose gossip
+    part holds K2; a publish after the rollout (1100-1200 µs)."""
+    return [
+        ("rollout", 0, 1000 * US, -1, 0),
+        ("round.propagate", 100 * US, 300 * US, 0, 0),
+        ("kernel.k1", 105 * US, 120 * US, 1, None),
+        ("round.propagate", 400 * US, 500 * US, 0, 1),
+        ("kernel.k1", 405 * US, 420 * US, 3, None),
+        ("round.heartbeat", 600 * US, 900 * US, 0, 1),
+        ("heartbeat.gossip", 650 * US, 800 * US, 5, 1),
+        ("kernel.k2", 690 * US, 710 * US, 6, None),
+        None,                              # still open: skipped
+        ("publish", 1100 * US, 1200 * US, -1, 2),
+    ]
 
 
-def _device(name, start, us):
-    return SimpleNamespace(
-        name=name, device_type=DeviceType.CUDA,
-        time_range=SimpleNamespace(start=start, elapsed_us=lambda: us))
+# (name, correlation id, device start, device end), and the launch calls'
+# host stamps by correlation id.
+DEVICE = [
+    ("void propagate_kernel<4>(int)", 1, 150 * US, 180 * US),
+    ("aten_fill", 2, 200 * US, 1200 * US),     # launched in round 1
+    ("void propagate_kernel<4>(int)", 3, 450 * US, 490 * US),
+    ("exchange_kernel<4>", 4, 720 * US, 740 * US),
+    ("aten_sum", 5, 1150 * US, 1160 * US),     # launched by publish
+    ("Memcpy DtoD", 6, 1300 * US, 1310 * US),  # launched after every span
+    ("orphan", 7, 0, 5 * US),                  # no launch call in the trace
+]
+LAUNCHES = {1: 110 * US, 2: 200 * US, 3: 410 * US, 4: 700 * US,
+            5: 1150 * US, 6: 1250 * US}
 
 
-def _trace(link_port_kernels: bool):
-    """Two rounds (K1 of 30 and 40 µs) and one heartbeat (K2 of 20 µs),
-    each half with an aten kernel of 1000 µs linked to it."""
-    cpu, dev = [], []
-    for r, (t0, k1_us) in enumerate(((0, 30.0), (100, 40.0))):
-        prop = _cpu("_propagate", t0, kernels=[("aten_fill", 1000.0)])
-        name = f"void propagate_kernel<4>(int) #{r}"
-        k1 = _cpu("gossip_propagate", t0 + 1, prop,
-                  kernels=[(name, k1_us)] if link_port_kernels else [])
-        cpu += [prop, k1]
-        dev.append(_device(name, t0 + 50, k1_us))
-    beat = _cpu("_heartbeat", 200, kernels=[("aten_index_add", 1000.0)])
-    k2 = _cpu("gossip_exchange", 201, beat,
-              kernels=[("exchange_kernel<4>", 20.0)]
-              if link_port_kernels else [])
-    cpu += [beat, k2]
-    dev.append(_device("exchange_kernel<4>", 250, 20.0))
-    for e in cpu:
-        e.device_time_total = _total(e)
-    return cpu + dev
-
-
-@pytest.mark.parametrize("linked", [False, True])
-def test_port_kernels_count_in_the_ranges_around_their_wrapper(linked):
-    ranges, port = _range_device_ms(_trace(linked), LABELS)
-    ms = {label: r["device_ms"] for label, r in ranges.items()}
+def test_kernels_count_in_every_span_open_at_their_launch():
+    ranges = _range_device_ms(DEVICE, LAUNCHES, _spans())
+    ms = {name: r["device_ms"] for name, r in ranges.items()}
     assert ms == pytest.approx({
-        "gossip_propagate": 0.070, "gossip_exchange": 0.020,
-        "_propagate": 2.070, "_heartbeat": 1.020})
-    assert {label: r["calls"] for label, r in ranges.items()} == {
-        "gossip_propagate": 2, "gossip_exchange": 1, "_propagate": 2,
-        "_heartbeat": 1}
-    assert port == {
-        "gossip_propagate": {"launches": 2, "linked": 2 if linked else 0},
-        "gossip_exchange": {"launches": 1, "linked": 1 if linked else 0}}
+        "rollout": 0.030 + 1.0 + 0.040 + 0.020,
+        "round.propagate": 0.030 + 1.0 + 0.040,
+        "kernel.k1": 0.070, "round.heartbeat": 0.020,
+        "heartbeat.gossip": 0.020, "kernel.k2": 0.020, "publish": 0.010})
+    assert {name: r["calls"] for name, r in ranges.items()} == {
+        "rollout": 1, "round.propagate": 2, "kernel.k1": 2,
+        "round.heartbeat": 1, "heartbeat.gossip": 1, "kernel.k2": 1,
+        "publish": 1}
 
 
-def test_launches_that_do_not_match_the_wrapper_calls_are_refused():
-    events = _trace(False)
-    extra = _device("void propagate_kernel<4>(int)", 400, 10.0)
-    with pytest.raises(SystemExit, match="cannot attribute"):
-        _range_device_ms(events + [extra], LABELS)
+def test_a_kernel_counts_once_a_name_and_unlinked_ones_nowhere():
+    # A span nested in one of its own name (a wrapper calling the same
+    # layer) does not count the kernel twice.
+    spans = [("rollout", 0, 500 * US, -1, 0),
+             ("rollout", 100 * US, 200 * US, 0, 0)]
+    device = [("k", 1, 150 * US, 170 * US), ("k", 2, 300 * US, 310 * US),
+              ("k", 3, 400 * US, 900 * US)]
+    ranges = _range_device_ms(device, {1: 150 * US, 2: 300 * US}, spans)
+    assert ranges == {"rollout": {"device_ms": pytest.approx(0.030),
+                                  "calls": 2}}
+    assert _range_device_ms(device, {}, spans)["rollout"]["device_ms"] == 0
+
+
+def test_idle_gaps_go_to_the_innermost_span_at_their_midpoint():
+    idle = _idle_by_span(DEVICE, _spans(), 0, 1400 * US)
+    # Busy: 0-5, 150-180, 200-1200, 1300-1310 µs.  Gaps: 5-150 (mid 77:
+    # the rollout), 180-200 (190: round 1), 1200-1300 (1250: no span),
+    # 1310-1400 (1355: no span).
+    assert idle["total_ms"] == pytest.approx({
+        "rollout": 0.145, "round.propagate": 0.020,
+        "outside_spans": 0.100 + 0.090})
+    assert idle["longest"] == [
+        ["rollout", pytest.approx(0.145)],
+        ["outside_spans", pytest.approx(0.100)],
+        ["outside_spans", pytest.approx(0.090)],
+        ["round.propagate", pytest.approx(0.020)]]
+    # Clipped to the window; with no span every gap is outside.
+    none = _idle_by_span(DEVICE, [], 100 * US, 250 * US)
+    assert none["total_ms"] == pytest.approx({"outside_spans": 0.070})
+
+
+class _Kineto:
+    def __init__(self, name, cuda, corr, start, dur):
+        self._v = (name, cuda, corr, start, dur)
+
+    def name(self):
+        return self._v[0]
+
+    def device_type(self):
+        return "DeviceType.CUDA" if self._v[1] else "DeviceType.CPU"
+
+    def correlation_id(self):
+        return self._v[2]
+
+    def start_ns(self):
+        return self._v[3]
+
+    def duration_ns(self):
+        return self._v[4]
+
+
+@pytest.mark.parametrize("launch", ["cudaLaunchKernel", "cuLaunchKernel",
+                                    "cudaMemcpyAsync"])
+def test_trace_events_pair_device_work_with_its_launch_call(launch):
+    events = [
+        _Kineto("propagate_kernel<4>", True, 9, 5000, 300),
+        _Kineto(launch, False, 9, 4000, 50),
+        _Kineto("aten::add", False, 9, 3900, 200),   # an op, not a launch
+        _Kineto("rollout", False, 0, 0, 9000),
+        _Kineto("empty_marker", True, 11, 6000, 0),  # no duration
+    ]
+    prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: events)))
+    device, launches = _trace_events(prof)
+    assert device == [("propagate_kernel<4>", 9, 5000, 5300)]
+    assert launches == {9: 4000}
