@@ -37,6 +37,18 @@ Phases (each one fails the run, exit code != 0, on any error):
               launched, the round delivering and the heartbeat
               advertising; prints the cells per output, the mismatches
               (0) and each unpacked cube's bytes.  At most 30 s;
+3c. prng  -- the PRNG's threefry kernel (``ops/cuda_rng.py``) against
+              the PyTorch chain (``ops/rng.py`` on a CPU key) at every
+              entry point: ``split`` (2, 3, 6 keys), ``uniform`` at the
+              main path's [100000, 32] (also narrow, and through the fused
+              multiply-add), ``uniform_rows`` on a permutation,
+              ``fold_in`` on data, ``randint`` (power-of-two span, a span
+              above 2**16, ``row_offset``, ``rows=``) and 32 bits at a
+              counter above 2**32: every bit equal, each call one launch;
+              the kernel's device time (CUDA events, median of 20) at 2
+              keys and at [100000, 32] beside its bound (int32
+              operations) and the chain's, and each one's host time a
+              call.  At most 30 s;
 4. ed25519 -- E1 against the native library on every row, its plain
               PyTorch version (on the card) at every batch up to 2048 and
               the oracle on 128 rows, over the RFC 8032 vectors and a
@@ -298,6 +310,9 @@ N_MSGS, N_FORGED, ROLLOUT_STEPS = 128, 4, 24
 HEADLINE = dict(n_peers=100_000, n_slots=32, conn_degree=16,
                 msg_window=N_MSGS)
 L2_FLUSH_BYTES = 128 << 20         # written before each L2-flushed launch
+INT32_PER_CLK_SM = 64              # 32-bit integer issue rate, cc 9.0
+PRNG_OPS_PER_ELEMENT = 75          # threefry's 20 rounds, 5 injections, tail
+PRNG_SEED, PRNG_BUDGET_S = 2026, 30.0
 E1_SWEEP, E1_SEED = 4096, 2026     # the corruption sweep's rows and seed
 E1_BATCHES = (N_MSGS, 512, 2048, 8192, 32768)
 E1_CHECK_BATCHES = (1, 3, 7, 9, 127, 128, 129, 511, 512, 513)
@@ -458,7 +473,8 @@ def ptxas_report(text: str):
         m = re.search(r"(?:entry function|properties for) '?(\w+)", line)
         if m:
             k = re.search(r"(propagate|exchange|ed25519_verify|"
-                          r"ed25519_verify_one)_kernelILi(\d+)E", m.group(1))
+                          r"ed25519_verify_one|threefry)_kernelILi(\d+)E",
+                          m.group(1))
             fn = f"{k.group(1)}_kernel<{k.group(2)}>" if k else None
             if fn:
                 report.setdefault(fn, {})
@@ -485,6 +501,18 @@ def check_ptxas(text: str):
     kernels = {name.split("<")[0] for name in report}
     if kernels != {"propagate_kernel", "exchange_kernel"}:
         fail(f"ptxas reported no registers for both kernels: {report}")
+    for name, r in report.items():
+        if r.get("spill_stores", 0) or r.get("spill_loads", 0):
+            fail(f"{name} spills: {r}")
+    return report
+
+
+def check_prng_ptxas(text: str):
+    """Fails the run if the threefry kernel spills; returns the report."""
+    report = ptxas_report(text)
+    if len(report) != 4:
+        fail(f"ptxas reported no registers for the threefry kernel's four "
+             f"outputs: {report}")
     for name, r in report.items():
         if r.get("spill_stores", 0) or r.get("spill_loads", 0):
             fail(f"{name} spills: {r}")
@@ -882,6 +910,109 @@ def oracle_phase(dev, card: str):
         fail(f"phase oracle took {seconds:.1f} s, over {ORACLE_BUDGET_S}")
     return {"gossip_propagate": orc.total("K1"),
             "gossip_exchange": orc.total("K2")}
+
+
+# -- phase 3c: the PRNG's threefry kernel ----------------------------------------
+
+
+def _prng_cases(n: int):
+    """name -> draw of ``ops/rng.py`` on (key, tensors): every entry point,
+    at the main path's shapes where it has one."""
+    from go_libp2p_pubsub_torch.ops import rng
+
+    return {
+        "split2": lambda k, t: rng.split(k, 2),
+        "split3": lambda k, t: rng.split(k, 3),
+        "split6": lambda k, t: rng.split(k, 6),
+        "uniform_row": lambda k, t: rng.uniform(k, (1, 32)),
+        "uniform": lambda k, t: rng.uniform(k, (n, 32)),
+        "uniform_narrow": lambda k, t: rng.uniform(k, (n, 32), 0.0, 1e-3),
+        "uniform_fma": lambda k, t: rng.uniform(k, (1000, 32), -2.5, 3.0),
+        "uniform_rows": lambda k, t: rng.uniform_rows(k, t["uid"], (32,)),
+        "fold_in": lambda k, t: rng.fold_in(k, t["data"]),
+        "randint_pow2": lambda k, t: rng.randint(k, (n, 32), 0, 256),
+        "randint_wide": lambda k, t: rng.randint(k, (2000, 32), -7, 100_000),
+        "randint_offset": lambda k, t: rng.randint(k, (500, 32), 0, 256,
+                                                   row_offset=1234),
+        "randint_rows": lambda k, t: rng.randint(k, (1000, 32), 0, 77,
+                                                 rows=t["uid"][:1000]),
+        "bits32_high": lambda k, t: rng._bits32(k, (3, 64),
+                                                row_offset=2**26 + 5),
+    }
+
+
+def prng_phase(dev, card: str):
+    """Phase 3c.  Returns the kernel's record (``launches`` filled by the
+    closed loop in a full run)."""
+    import numpy as np
+    import torch
+
+    from go_libp2p_pubsub_torch.ops import cuda_rng, rng
+
+    t0 = time.perf_counter()
+    n = HEADLINE["n_peers"]
+    perm = np.random.default_rng(PRNG_SEED).permutation(n)
+    data = [0, 1, 2**31 - 1, -1, -(2**31), 77]
+    cpu_key = rng.split(rng.PRNGKey(PRNG_SEED), 3)[1]
+    key = cpu_key.to(dev)
+    on = {"cpu": (cpu_key, dict(uid=torch.from_numpy(perm).to(torch.int32),
+                                data=torch.tensor(data))),
+          "card": (key, dict(uid=torch.from_numpy(perm).to(torch.int32).to(
+              dev), data=torch.tensor(data).to(dev)))}
+    cases = _prng_cases(n)
+    for name, draw in cases.items():
+        want = draw(*on["cpu"])
+        before = cuda_rng.threefry.launches
+        got = draw(*on["card"])
+        if cuda_rng.threefry.launches != before + 1:
+            fail(f"prng {name}: {cuda_rng.threefry.launches - before} "
+                 f"launches, not 1")
+        a, b = got.cpu(), want
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if a.shape != b.shape or not torch.equal(a, b):
+            fail(f"prng {name}: the kernel differs from the PyTorch chain")
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rate = INT32_PER_CLK_SM * sms * float(_query_gpu("clocks.max.sm")) * 1e6
+
+    def host_ms(fn, reps=20):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - a) * 1e3)
+        torch.cuda.synchronize()
+        return sorted(times)[reps // 2]
+
+    timed = {}
+    for name, elements, out_bytes, kernel, chain in (
+            ("split_2", 2, 8, lambda: rng.split(key, 2),
+             lambda: rng._split_chain(key, (2,))),
+            ("uniform_100k_32", n * 32, 4, lambda: rng.uniform(key, (n, 32)),
+             lambda: rng._uniform_chain(key, (n, 32), 0.0, 1.0))):
+        ops, nbytes = elements * PRNG_OPS_PER_ELEMENT, elements * out_bytes + 8
+        bound = max(ops / rate, nbytes / HBM_BYTES_PER_S) * 1e3
+        ms = _time_ms(kernel)
+        timed[name] = dict(
+            ms=ms, bound_ms=bound, bound_share=bound / ms,
+            bound_by="int32 ops" if ops / rate > nbytes / HBM_BYTES_PER_S
+            else "bytes", int32_ops=ops, bytes=nbytes,
+            plain_ms=_time_ms(chain), host_ms=host_ms(kernel),
+            plain_host_ms=host_ms(chain), call_ms=_time_ms(kernel, lead=False),
+            plain_call_ms=_time_ms(chain, lead=False))
+    seconds = time.perf_counter() - t0
+    record = dict(name="threefry", route="cuda",
+                  source="go_libp2p_pubsub_torch/csrc/threefry.cu",
+                  replaces=None, launches=None, cases=len(cases),
+                  mismatches=0, library_ms=None, timed=timed)
+    emit(dict(phase="prng", seconds=seconds, card=card,
+              budget_s=PRNG_BUDGET_S, **record))
+    if seconds > PRNG_BUDGET_S:
+        fail(f"phase prng took {seconds:.1f} s, over {PRNG_BUDGET_S}")
+    return record
 
 
 # -- phase 4: the ed25519 verify kernel E1 ---------------------------------------
@@ -1329,7 +1460,7 @@ def main_path(dev, card: str):
     from go_libp2p_pubsub_torch.crypto import native
     from go_libp2p_pubsub_torch.crypto.pipeline import ValidationPipeline
     from go_libp2p_pubsub_torch.models.gossipsub import GossipSub
-    from go_libp2p_pubsub_torch.ops import cuda_ed25519, cuda_gossip
+    from go_libp2p_pubsub_torch.ops import cuda_ed25519, cuda_gossip, cuda_rng
     from go_libp2p_pubsub_torch.utils.metrics import flight_summary
 
     rng = np.random.default_rng(1)
@@ -1378,6 +1509,7 @@ def main_path(dev, card: str):
     gs.rollout(st, ROLLOUT_STEPS, record=True)     # warm run
     torch.cuda.synchronize()
     cuda_gossip.reset_launches()
+    cuda_rng.reset_launches()
     t0 = time.perf_counter()
     out, rec = gs.rollout(st, ROLLOUT_STEPS, record=True)
     torch.cuda.synchronize()
@@ -1389,6 +1521,7 @@ def main_path(dev, card: str):
         fail(f"timed rollout launched {launches}, expected "
              f"{ROLLOUT_STEPS} K1 and {ROLLOUT_STEPS // 8} K2")
     launches["ed25519_verify"] = e1_launches
+    launches["threefry"] = cuda_rng.threefry.launches
 
     flight = flight_summary(rec)
     frac, p50, p99 = (x.cpu().numpy() for x in gs.delivery_stats(out))
@@ -4799,7 +4932,7 @@ def tools_phase(dev, card: str):
     return launches
 
 
-PHASES = {"oracle": oracle_phase, "main": main_path,
+PHASES = {"oracle": oracle_phase, "prng": prng_phase, "main": main_path,
           "scenario": scenario_phase,
           "serve": serve_phase, "tree": tree_phase, "coded": coded_phase,
           "sharded": sharded_phase, "live": live_phase, "tools": tools_phase}
@@ -4825,7 +4958,8 @@ def main() -> None:
     sys.path.insert(0, ROOT)
     try:
         from go_libp2p_pubsub_torch.crypto import native
-        from go_libp2p_pubsub_torch.ops import cuda_ed25519, cuda_gossip
+        from go_libp2p_pubsub_torch.ops import (cuda_ed25519, cuda_gossip,
+                                                cuda_rng)
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
     card = card_line()
@@ -4837,17 +4971,20 @@ def main() -> None:
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(4) as ex:
         kernels = ex.submit(cuda_gossip.build, True)
+        prng = ex.submit(cuda_rng.build, True)
         e1 = ex.submit(cuda_ed25519.build, True) if with_e1 else None
         ed = ex.submit(native.build)
         base = (ex.submit(e1_baseline, args.e1_baseline)
                 if args.e1_baseline else None)
         ptxas = check_ptxas(kernels.result())
+        prng_ptxas = check_prng_ptxas(prng.result())
         e1_ptxas = check_e1_ptxas(e1.result()) if with_e1 else None
         ed.result()
         baseline = base.result() if base else None
     imads = fe_mul_imads() if with_e1 else None
     emit(dict(phase="build", seconds=time.perf_counter() - t0, ptxas=ptxas,
-              e1_ptxas=e1_ptxas, e1_fe_mul_imads=imads))
+              prng_ptxas=prng_ptxas, e1_ptxas=e1_ptxas,
+              e1_fe_mul_imads=imads))
     if args.phase:
         torch.cuda.set_device(dev)
         torch.zeros(1, device=dev)          # the context, before any phase
@@ -4860,7 +4997,9 @@ def main() -> None:
     for r in records:
         r["oracle_cells"] = oracle_cells[r["name"]]
     records.append(check_ed25519(dev, e1_ptxas, imads, card, baseline))
+    prng = prng_phase(dev, card)
     launches = main_path(dev, card)
+    prng["launches"] = launches["threefry"]
     scenario_launches = scenario_phase(dev, card)
     serve_launches, streaming_launches = serve_phase(dev, card)
     tree_launches = tree_phase(dev, card)
@@ -4881,7 +5020,8 @@ def main() -> None:
         r["launches_live"] = live_launches[r["name"]]
         r["launches_tools"] = tools_launches[r["name"]]
         emit(dict(phase="kernel", **r))
-    emit({"kernels": records})
+    emit(dict(phase="kernel", **prng))
+    emit({"kernels": records + [prng]})
     print(card, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -65,6 +65,18 @@ def device_index(dev: torch.device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
+_sm_counts = {}
+
+
+def sm_count(dev: torch.device) -> int:
+    """Streaming multiprocessors of CUDA device ``dev`` (cached)."""
+    index = device_index(dev)
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
+
+
 def raise_on(code: int, what: str) -> None:
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")

@@ -59,6 +59,7 @@ from . import cuda_build, gossip_packed
 from .cuda_build import KernelBuildError  # noqa: F401  (re-exported)
 from .cuda_build import device_index as _index
 from .cuda_build import raise_on as _raise_on
+from .cuda_build import sm_count
 from .gossip_packed import PropagatePackedOut
 from ..utils.trace import span
 
@@ -78,7 +79,6 @@ class LaunchShape(NamedTuple):
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-_sm_counts: Dict[int, int] = {}
 _shapes: Dict[Tuple[str, int, int, int], LaunchShape] = {}
 
 
@@ -146,15 +146,6 @@ def launch_shape(kernel: str, variant: int, k: int,
                                               k, out), "gossip_launch_shape")
         _shapes[key] = LaunchShape(*out)
     return _shapes[key]
-
-
-def sm_count(dev: torch.device) -> int:
-    """Streaming multiprocessors of CUDA device ``dev`` (cached)."""
-    index = _index(dev)
-    if index not in _sm_counts:
-        _sm_counts[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return _sm_counts[index]
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:

@@ -20,6 +20,13 @@ Keys are int32[2] tensors holding the uint32 bit patterns of jax's raw
 ``uint32[2]`` keys.  torch's CPU ``uint32`` has no shifts, so values
 travel as int64 in [0, 2**32) and the hash's rounds run on int32 bit
 patterns.
+
+The key's device chooses the path, and nothing else does.  On a CUDA key
+each of ``split``, ``fold_in``, ``uniform``, ``uniform_rows``, ``randint``
+and the 32-bit draws is one launch of the threefry kernel
+(``ops/cuda_rng.py``), which reads the key on the card.  On a CPU key they
+run the hash as the PyTorch ops below, which are also the kernel's twin in
+the tests.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import numpy as np
 import torch
 
 from ..utils.trace import span
+from . import cuda_rng
 from .fma import fma
 
 _M32 = 0xFFFFFFFF
@@ -105,6 +113,11 @@ def _counters(shape: Sequence[int], device, row_offset: int = 0
     return idx >> 32, idx & _M32
 
 
+def _on_card(key: torch.Tensor) -> bool:
+    """Whether ``key``'s draws launch the kernel: a CUDA key."""
+    return key.device.type == "cuda"
+
+
 def _hash(key: torch.Tensor, shape, row_offset: int = 0
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     k = _u32(key)
@@ -116,14 +129,23 @@ def split(key: torch.Tensor, num: Union[int, Sequence[int]] = 2) -> torch.Tensor
     """``jax.random.split``: int32[2] key -> int32[num, 2] new keys."""
     with span("rng.split"):
         shape = (num,) if isinstance(num, int) else tuple(num)
-        b1, b2 = _hash(key, shape)
-        return _i32(torch.stack([b1, b2], dim=-1))
+        if _on_card(key):
+            return cuda_rng.threefry(key, cuda_rng.counter_plan(
+                cuda_rng.PAIR, shape))
+        return _split_chain(key, shape)
+
+
+def _split_chain(key: torch.Tensor, shape) -> torch.Tensor:
+    b1, b2 = _hash(key, shape)
+    return _i32(torch.stack([b1, b2], dim=-1))
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: the threefry hash of the counter pair
     ``(0, data)`` under ``key``, ``data`` taken as uint32 (an int, or an
     int tensor of any shape, which folds each element) -> int32[..., 2]."""
+    if _on_card(key):
+        return cuda_rng.threefry(key, cuda_rng.fold_plan(data), data)
     k = _u32(key)
     d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _M32
     b1, b2 = threefry2x32(k[0], k[1], torch.zeros_like(d), d)
@@ -140,20 +162,29 @@ def uniform(
     mantissa of a float in [1, 2), minus 1, scaled into [minval, maxval)."""
     with span("rng.uniform"):
         shape = tuple(int(d) for d in shape)
-        b1, b2 = _hash(key, shape)
-        bits = _i32(((b1 ^ b2) >> 9) | 0x3F800000)
-        floats = bits.view(torch.float32) - 1.0
-        # The bounds as float32 values held in Python floats: scalars reach the
-        # kernels as arguments, with no host-to-device copy.
-        lo = float(np.float32(minval))
-        width = float(np.float32(maxval) - np.float32(minval))
-        # jax's ``floats * (maxval - minval) + minval`` is contracted into
-        # one fused multiply-add by XLA's CPU backend; with minval == 0
-        # (every draw of the model) a plain float32 multiply rounds
-        # identically.
-        if minval == 0.0:
-            return torch.clamp(floats * width, min=lo)
-        return torch.clamp(fma(floats, width, lo), min=lo)
+        if _on_card(key):
+            return cuda_rng.threefry(key, cuda_rng.counter_plan(
+                cuda_rng.UNIFORM, shape,
+                **cuda_rng.uniform_params(minval, maxval)))
+        return _uniform_chain(key, shape, minval, maxval)
+
+
+def _uniform_chain(key: torch.Tensor, shape, minval: float,
+                   maxval: float) -> torch.Tensor:
+    b1, b2 = _hash(key, shape)
+    bits = _i32(((b1 ^ b2) >> 9) | 0x3F800000)
+    floats = bits.view(torch.float32) - 1.0
+    # The bounds as float32 values held in Python floats: scalars reach the
+    # kernels as arguments, with no host-to-device copy.
+    lo = float(np.float32(minval))
+    width = float(np.float32(maxval) - np.float32(minval))
+    # jax's ``floats * (maxval - minval) + minval`` is contracted into
+    # one fused multiply-add by XLA's CPU backend; with minval == 0
+    # (every draw of the model) a plain float32 multiply rounds
+    # identically.
+    if minval == 0.0:
+        return torch.clamp(floats * width, min=lo)
+    return torch.clamp(fma(floats, width, lo), min=lo)
 
 
 def _bits_rows(key: torch.Tensor, rows: torch.Tensor, inner) -> torch.Tensor:
@@ -161,6 +192,9 @@ def _bits_rows(key: torch.Tensor, rows: torch.Tensor, inner) -> torch.Tensor:
     patterns) of rows ``rows`` of a draw whose trailing axes are ``inner``:
     element ``(r, j)`` hashes its flat index ``rows[r] * prod(inner) + j``
     -> int32[len(rows), *inner]."""
+    if _on_card(key):
+        return cuda_rng.threefry(key, cuda_rng.counter_plan(
+            cuda_rng.BITS, (len(rows),) + tuple(inner), by_rows=True), rows)
     k = _u32(key)
     ks = _key_schedule(k[0], k[1])
     inner = tuple(int(d) for d in inner)
@@ -189,6 +223,10 @@ def uniform_rows(
     ``max(rows)``, drawn alone: bit for bit ``uniform(key, shape)[rows]``.
     The float is built from the int32 bits as :func:`uniform` builds it
     from the uint32 words (logical shift, exponent of 1.0)."""
+    if _on_card(key):
+        return cuda_rng.threefry(key, cuda_rng.counter_plan(
+            cuda_rng.UNIFORM, (len(rows),) + tuple(inner), by_rows=True,
+            **cuda_rng.uniform_params(minval, maxval)), rows)
     bits = (_srl(_bits_rows(key, rows, inner), 9) | 0x3F800000).to(
         torch.int32)
     floats = bits.view(torch.float32) - 1.0
@@ -208,6 +246,9 @@ def _bits32(key: torch.Tensor, shape, row_offset: int = 0,
     ``rows`` draws those rows alone (:func:`_bits_rows`)."""
     if rows is not None:
         return _bits_rows(key, rows, shape[1:])
+    if _on_card(key):
+        return cuda_rng.threefry(key, cuda_rng.counter_plan(
+            cuda_rng.BITS, shape, row_offset))
     k = _u32(key)
     ks = _key_schedule(k[0], k[1])
     n = 1
@@ -263,9 +304,13 @@ def randint(
             raise OverflowError(f"randint bound {v} outside int32")
     span = 1 if maxval <= minval else maxval - minval
     mult = ((((1 << 16) % span) ** 2) & _M32) % span
-    k1, k2 = split(key, 2).unbind(0)
     if rows is not None and len(rows) != shape[0]:
         raise ValueError(f"randint: {len(rows)} rows for shape {shape}")
+    if _on_card(key):
+        return cuda_rng.threefry(key, cuda_rng.counter_plan(
+            cuda_rng.RANDINT, shape, row_offset, rows is not None,
+            **cuda_rng.randint_params(span, mult, minval)), rows)
+    k1, k2 = split(key, 2).unbind(0)
     lower = _bits32(k2, shape, row_offset, rows)
     if span & (span - 1) == 0:
         return (lower & (span - 1)) + minval   # int32 adds wrap as uint32

@@ -16,8 +16,9 @@ warm ``rollout(24, record=True)``, then, from the same state each time:
   recorded (``utils.trace.set_recorder``): its wall time, the device busy
   time (the union of its kernels' and copies' intervals on the card) and
   the idle share ``1 - busy / wall``, the kernel launches per round, the
-  kernels that take the most time and the launches and device time of
-  the port's own two kernels (``port_kernels``); the device time of the
+  kernels that take the most time and the launches (in all and a round)
+  and device time of the port's own kernels (``port_kernels``: K1, K2 and
+  the PRNG's threefry kernel); the device time of the
   kernels launched inside each program span (``ranges``: a kernel counts
   in every span open on the host when its launch call ran, the launch
   found through the trace's correlation id; spans nest, so K1's time is
@@ -85,7 +86,8 @@ from .utils import trace
 ROUNDS = 24
 # span of the port kernel's entry -> its kernel's name in the trace
 PORT_KERNELS = {"kernel.k1": "propagate_kernel",
-                "kernel.k2": "exchange_kernel"}
+                "kernel.k2": "exchange_kernel",
+                "kernel.prng": "threefry_kernel"}
 IDLE_GAPS = 10
 
 
@@ -265,6 +267,7 @@ def profile(n_peers: int, campaign: bool = False, serve: bool = False,
         ks = [(c, a, b) for n, c, a, b in device if kernel in n]
         port_kernels[label] = {
             "launches": len(ks),
+            "launches_per_round": len(ks) / rounds,
             "device_ms": sum(b - a for _, a, b in ks) / 1e6,
             "linked_to_launch": sum(c in launches for c, _, _ in ks)}
     if trace_out is not None:
