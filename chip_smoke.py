@@ -13,13 +13,15 @@ Phases (each one fails the run, exit code != 0, on any error):
               SASS (cuobjdump);
 3. kernels -- each kernel against its plain PyTorch version on the card,
               bit for bit, in every arm: at N in {100000, 589}, K in
-              {8, 16, 32}, W = 4, and over every instantiation and tail
-              (W in {1, 2, 3, 4, 8}, K in {1, 8, 16, 31, 32}, N in {1,
-              589, enough peers for several tiles a block and a ragged
-              last one}); fails if ``-Xptxas -v`` reports a spill; prints
-              how many blocks of each instantiation an SM holds; times
-              both at the main path's shapes (CUDA events), warm and with
-              the L2 flushed, beside the least time the card could take;
+              {8, 16, 32}, W = 4, at the stream's N=100000, K=32, W=16,
+              and over every instantiation and tail (W in {1, 2, 3, 4,
+              8, 16}, K in {1, 8, 16, 31, 32}, N in {1, 589, enough
+              peers for several tiles a block and a ragged last one});
+              fails if ``-Xptxas -v`` reports a spill; prints how many
+              blocks of each instantiation an SM holds; times both at
+              the main path's shapes (CUDA events; W = 4, and W = 16 for
+              the stream's 512-message window), warm and with the L2
+              flushed, beside the least time the card could take;
 3b. oracle -- K1 and K2 against the unpacked gossip plane
               (``ops/gossip.py``: the boolean [N, K, M] ``propagate``,
               ``ihave_advertise`` and ``iwant_select``), an oracle
@@ -309,6 +311,7 @@ IMAD_PER_CLK_SM = 64               # 32-bit IMAD issue rate, compute cap. 9.0
 N_MSGS, N_FORGED, ROLLOUT_STEPS = 128, 4, 24
 HEADLINE = dict(n_peers=100_000, n_slots=32, conn_degree=16,
                 msg_window=N_MSGS)
+STREAM_W = 16                      # words of the stream cells' 512-message window
 L2_FLUSH_BYTES = 128 << 20         # written before each L2-flushed launch
 INT32_PER_CLK_SM = 64              # 32-bit integer issue rate, cc 9.0
 PRNG_OPS_PER_ELEMENT = 75          # threefry's 20 rounds, 5 injections, tail
@@ -567,17 +570,17 @@ def check_cases(dev, geometries):
     return err, cases
 
 
-def time_kernels(dev, flush):
-    """Both kernels at the main path's shapes (N=100000, K=32, W=4): warm
-    (back to back) and L2-flushed times, their bytes bounds, and the
-    plain versions' times."""
+def time_kernels(dev, flush, w: int = N_MSGS // 32):
+    """Both kernels at the main path's shapes (N=100000, K=32, W=4 by
+    default): warm (back to back) and L2-flushed times, their bytes
+    bounds, and the plain versions' times."""
     import torch
 
     from go_libp2p_pubsub_torch.ops import cuda_gossip
     from go_libp2p_pubsub_torch.ops import gossip_packed as plain
 
     gen = torch.Generator(device=dev)
-    n, k, w = HEADLINE["n_peers"], HEADLINE["n_slots"], N_MSGS // 32
+    n, k = HEADLINE["n_peers"], HEADLINE["n_slots"]
     gen.manual_seed(1)
     args, kw = propagate_inputs(gen, n, k, w, dev, "plain")
     k1 = lambda: cuda_gossip.propagate(*args, **kw)  # noqa: E731
@@ -619,12 +622,15 @@ def check_kernels(dev, ptxas):
                   for v in (0, *cuda_gossip.VECTOR_WIDTHS)}))
     geometries = [(n, k, w) for n in (HEADLINE["n_peers"], 589)
                   for k in (8, 16, 32)]
+    geometries.append((HEADLINE["n_peers"], HEADLINE["n_slots"], STREAM_W))
     geometries += [(n, k, wx) for n in (1, 589, many)
-                   for k in (1, 8, 16, 31, 32) for wx in (1, 2, 3, 4, 8)]
+                   for k in (1, 8, 16, 31, 32)
+                   for wx in (1, 2, 3, 4, 8, STREAM_W)]
     err, cases = check_cases(dev, geometries)
 
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
     timed = time_kernels(dev, flush)
+    wide = time_kernels(dev, flush, STREAM_W)
     del flush
     src = "go_libp2p_pubsub_torch/csrc/gossip_kernels.cu"
     records = []
@@ -647,7 +653,21 @@ def check_kernels(dev, ptxas):
             tile_peers=shape.tile_peers, blocks_per_sm=shape.blocks_per_sm,
             grid=cuda_gossip.grid_blocks(HEADLINE["n_peers"], shape,
                                          cuda_gossip.sm_count(dev)),
-            cases=cases))
+            cases=cases,
+            w16={key: wide[name][key] for key in (
+                "ms", "ms_l2_flushed", "bound_ms", "bound_bytes",
+                "bound_share", "bound_share_l2_flushed")}
+            | {"plain_ms": _time_ms(wide[name]["plain"], reps=5),
+               "registers": ptxas[f"{kernel}<{STREAM_W}>"]["registers"]}))
+    return records
+
+
+def kernels_phase(dev, card: str, ptxas=None):
+    """Phase 3 alone (``--phase kernels``): prints each kernel's record
+    without the launch counts the other phases fill in."""
+    records = check_kernels(dev, ptxas)
+    for r in records:
+        emit(dict(phase="kernel", **r))
     return records
 
 
@@ -4932,8 +4952,8 @@ def tools_phase(dev, card: str):
     return launches
 
 
-PHASES = {"oracle": oracle_phase, "prng": prng_phase, "main": main_path,
-          "scenario": scenario_phase,
+PHASES = {"kernels": kernels_phase, "oracle": oracle_phase,
+          "prng": prng_phase, "main": main_path, "scenario": scenario_phase,
           "serve": serve_phase, "tree": tree_phase, "coded": coded_phase,
           "sharded": sharded_phase, "live": live_phase, "tools": tools_phase}
 
@@ -4989,7 +5009,10 @@ def main() -> None:
         torch.cuda.set_device(dev)
         torch.zeros(1, device=dev)          # the context, before any phase
         for name in args.phase:
-            PHASES[name](dev, card)
+            if name == "kernels":
+                kernels_phase(dev, card, ptxas)
+            else:
+                PHASES[name](dev, card)
         return
 
     records = check_kernels(dev, ptxas)

@@ -35,9 +35,12 @@
 // (gossip_launch_shape), whose warps walk every (grid * warps)-th tile (the
 // caller sizes it; at the headline every warp has one tile).
 //
-// W in {1, 2, 4, 8} have their own instantiation; any other W takes the
-// generic one (W = 0: runtime w, word by word, counters and per-slot cap
-// state in shared memory).  The caller (ops/cuda_gossip.py) picks the
+// W in {1, 2, 4, 8, 16} have their own instantiation; any other W takes
+// the generic one (W = 0: runtime w, word by word, counters and per-slot
+// cap state in shared memory).  W = 16 walks its delivering slots twice,
+// 8 words a pass, so a pass keeps W = 8's registers: K1 adds each pass's
+// counts, and K2 carries a slot's running IHAVE and IWANT counts from the
+// first pass to the second in shared memory.  The caller (ops/cuda_gossip.py) picks the
 // instantiation (`variant`) and the grid; the generic one also serves a
 // W-word table whose address is not aligned to the vector.
 //
@@ -87,7 +90,12 @@ __device__ __forceinline__ void warp_stage_words(int32_t* dst,
   for (int e = head + lane; e < count; e += 32) dst[e] = __ldg(src + e);
 }
 
-// Gathers a lane has in flight at once, G rows of W words: as many as the
+// Words a pass of an instantiation's walk takes: the whole row up to 8,
+// 8 at a time above.
+template <int W>
+constexpr int kPass = W > 8 ? 8 : W;
+
+// Gathers a lane has in flight at once, G rows of V words: as many as the
 // registers allow without spilling (K1 keeps more per slot than K2).
 template <int V>
 constexpr int kBatchK1 = V >= 8 ? 2 : (V >= 4 ? 4 : 8);
@@ -173,7 +181,8 @@ __device__ __forceinline__ void store_row(uint32_t* p, const uint32_t (&r)[V]) {
 // ---- the warp's shared memory ------------------------------------------------
 
 // Per-slot counts in shared memory: 8 bits up to W = 4 and 16 bits at
-// W = 8 (a count is at most 32 W), 32 bits for the generic instantiation.
+// W = 8 and 16 (a count is at most 32 W), 32 bits for the generic
+// instantiation.
 template <int W>
 using Count = std::conditional_t<
     (W == 0), uint32_t, std::conditional_t<(W <= 4), uint8_t, uint16_t>>;
@@ -188,12 +197,15 @@ template <int W>
 __host__ __device__ constexpr int warp_bytes(int k, int planes) {
   return align16(32 * k * 4) + planes * plane_bytes<W>(k);
 }
-// K1 keeps three count planes; K2 one (three for the generic W).
+// K1 keeps three count planes; K2 one (three where its walk takes more
+// than one pass: the generic W and W = 16).
+template <int W>
+constexpr int kExchangePlanes = (W > 0 && kPass<W> == W) ? 1 : 3;
 template <int W>
 constexpr int propagate_smem(int k) { return kWarps * warp_bytes<W>(k, 3); }
 template <int W>
 constexpr int exchange_smem(int k) {
-  return kWarps * warp_bytes<W>(k, W > 0 ? 1 : 3);
+  return kWarps * warp_bytes<W>(k, kExchangePlanes<W>);
 }
 
 // Write the first `count` counts of a plane as floats to dst (coalesced,
@@ -267,7 +279,9 @@ propagate_kernel(
     float* __restrict__ inv,                 // [N, K]
     int n, int k, int w_rt) {
   using C = Count<W>;
-  constexpr int V = W > 0 ? W : 1;
+  // V words a pass, P passes a row.
+  constexpr int V = W > 0 ? kPass<W> : 1;
+  constexpr int P = W > 0 ? W / V : 1;
   const int w = W > 0 ? W : w_rt;
   const int lane = threadIdx.x & 31;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -280,7 +294,7 @@ propagate_kernel(
   C* c_inv = c_mmd + plane_bytes<W>(k) / sizeof(C);
 
   uint32_t vd[V];
-  if constexpr (W > 0) load_row<V>(vd, valid);
+  if constexpr (W > 0 && P == 1) load_row<V>(vd, valid);
 
   // Warp tiles of 32 peers, lane = peer; the warps of the grid walk them.
   const int ntiles = (n + 31) / 32;
@@ -311,54 +325,74 @@ propagate_kernel(
                          : fresh + (long long)clamp_peer(ids[e0 + s], n) * w;
       };
       if constexpr (W > 0) {
-        constexpr int G = kBatchK1<V>;
-        uint32_t keep[V], before[V];
+        // A walk of several passes reloads the valid words and adds to its
+        // counts: it holds half as many rows in flight (no spill).
+        constexpr int G = P > 1 ? kBatchK1<V> / 2 : kBatchK1<V>;
+        // Pass p takes words [pV, pV + V) of every row; a bit's "first
+        // slot" is the same in either pass, and a slot's counts add.
+#pragma unroll 1
+        for (int p = 0; p < P; ++p) {
+          const int o0 = p * V;
+          if (p > 0) {
+            load_row<V>(hv, have + i * w + o0);
+            if (idw) load_row<V>(iw, idw + i * w + o0);
+          }
+          if constexpr (P > 1) load_row<V>(vd, valid + o0);
+          uint32_t keep[V], before[V];
 #pragma unroll
-        for (int v = 0; v < V; ++v) {
-          keep[v] = ~hv[v] & alive_m;
-          before[v] = 0u;
-          if (!idw) iw[v] = 0u;
-        }
-        // Walk the delivering slots G at a time: the batch's gathers are
-        // all in flight before the first is used.
-        for (uint32_t m = ok; m;) {
-          uint32_t x[G][V];
-          int sl[G];
+          for (int v = 0; v < V; ++v) {
+            keep[v] = ~hv[v] & alive_m;
+            before[v] = 0u;
+            if (!idw) iw[v] = 0u;
+          }
+          // Walk the delivering slots G at a time: the batch's gathers
+          // are all in flight before the first is used.
+          for (uint32_t m = ok; m;) {
+            uint32_t x[G][V];
+            int sl[G];
 #pragma unroll
-          for (int r = 0; r < G; ++r) {
-            sl[r] = __ffs(m) - 1;
-            if (m) {
-              load_row<V>(x[r], src(sl[r]));
-              m &= m - 1;
+            for (int r = 0; r < G; ++r) {
+              sl[r] = __ffs(m) - 1;
+              if (m) {
+                load_row<V>(x[r], src(sl[r]) + o0);
+                m &= m - 1;
+              }
+            }
+#pragma unroll
+            for (int r = 0; r < G; ++r) {
+              if (sl[r] < 0) break;
+              int f = 0, iv = 0, mm = 0;
+#pragma unroll
+              for (int v = 0; v < V; ++v) {
+                const uint32_t newly = x[r][v] & ~before[v] & keep[v];
+                before[v] |= x[r][v];
+                f += __popc(newly & vd[v]);
+                iv += __popc(newly & ~vd[v]);
+                mm += __popc(x[r][v] & ~iw[v] & vd[v]);
+              }
+              if constexpr (P > 1) {
+                c_fmd[e0 + sl[r]] += (C)f;
+                c_mmd[e0 + sl[r]] += (C)mm;
+                c_inv[e0 + sl[r]] += (C)iv;
+              } else {
+                c_fmd[e0 + sl[r]] = (C)f;
+                c_mmd[e0 + sl[r]] = (C)mm;
+                c_inv[e0 + sl[r]] = (C)iv;
+              }
             }
           }
+          uint32_t o[V];
 #pragma unroll
-          for (int r = 0; r < G; ++r) {
-            if (sl[r] < 0) break;
-            int f = 0, iv = 0, mm = 0;
+          for (int v = 0; v < V; ++v)
+            o[v] = hv[v] | (before[v] & keep[v] & vd[v]);
+          store_row<V>(have_o + i * w + o0, o);
 #pragma unroll
-            for (int v = 0; v < V; ++v) {
-              const uint32_t newly = x[r][v] & ~before[v] & keep[v];
-              before[v] |= x[r][v];
-              f += __popc(newly & vd[v]);
-              iv += __popc(newly & ~vd[v]);
-              mm += __popc(x[r][v] & ~iw[v] & vd[v]);
-            }
-            c_fmd[e0 + sl[r]] = (C)f;
-            c_mmd[e0 + sl[r]] = (C)mm;
-            c_inv[e0 + sl[r]] = (C)iv;
-          }
+          for (int v = 0; v < V; ++v) o[v] = before[v] & keep[v] & vd[v];
+          store_row<V>(fresh_o + i * w + o0, o);
+#pragma unroll
+          for (int v = 0; v < V; ++v) o[v] = before[v] & keep[v];
+          store_row<V>(new_o + i * w + o0, o);
         }
-        uint32_t o[V];
-#pragma unroll
-        for (int v = 0; v < V; ++v) o[v] = hv[v] | (before[v] & keep[v] & vd[v]);
-        store_row<V>(have_o + i * w, o);
-#pragma unroll
-        for (int v = 0; v < V; ++v) o[v] = before[v] & keep[v] & vd[v];
-        store_row<V>(fresh_o + i * w, o);
-#pragma unroll
-        for (int v = 0; v < V; ++v) o[v] = before[v] & keep[v];
-        store_row<V>(new_o + i * w, o);
       } else {
         // Word by word; a slot's counts accumulate in shared memory.
         for (int c = 0; c < w; ++c) {
@@ -418,9 +452,12 @@ exchange_kernel(
     float* __restrict__ broken_p,            // [N, K]
     int n, int n_rows, int k, int w_rt, int max_ihave, int max_iwant) {
   using C = Count<W>;
-  constexpr int V = W > 0 ? W : 1;
-  // Generic W: each walked slot's running IHAVE and IWANT counts too.
-  constexpr int kPlanes = W > 0 ? 1 : 3;
+  // V words a pass, P passes a row.
+  constexpr int V = W > 0 ? kPass<W> : 1;
+  constexpr int P = W > 0 ? W / V : 1;
+  // Generic W and P > 1: each walked slot's running IHAVE and IWANT
+  // counts too.
+  constexpr int kPlanes = kExchangePlanes<W>;
   const int w = W > 0 ? W : w_rt;
   const int lane = threadIdx.x & 31;
   extern __shared__ __align__(16) uint8_t smem[];
@@ -456,45 +493,66 @@ exchange_kernel(
         return rows + (long long)clamp_peer(ids[e0 + s], n_rows) * w;
       };
       if constexpr (W > 0) {
-        constexpr int G = kBatchK2<V>;
-        uint32_t before[V], served[V];
+        // A walk of several passes keeps each slot's running counts live
+        // beside its gathers: it holds half as many rows in flight.
+        constexpr int G = P > 1 ? kBatchK2<V> / 2 : kBatchK2<V>;
+        // Pass p takes words [pV, pV + V) of every row; a slot's running
+        // IHAVE and IWANT counts carry from one pass to the next.
+#pragma unroll 1
+        for (int p = 0; p < P; ++p) {
+          const int o0 = p * V;
+          if (p > 0) load_row<V>(dd, have_dedup + i * w + o0);
+          uint32_t before[V], served[V];
 #pragma unroll
-        for (int v = 0; v < V; ++v) before[v] = served[v] = 0u;
-        // Walk the advertising slots G at a time: the batch's gathers are
-        // all in flight before the first is used.
-        for (uint32_t m = walk; m;) {
-          uint32_t a[G][V];
-          int sl[G];
+          for (int v = 0; v < V; ++v) before[v] = served[v] = 0u;
+          // Walk the advertising slots G at a time: the batch's gathers
+          // are all in flight before the first is used.
+          for (uint32_t m = walk; m;) {
+            uint32_t a[G][V];
+            int sl[G];
 #pragma unroll
-          for (int r = 0; r < G; ++r) {
-            sl[r] = __ffs(m) - 1;
-            if (m) {
-              load_row<V>(a[r], src(sl[r]));
-              m &= m - 1;
+            for (int r = 0; r < G; ++r) {
+              sl[r] = __ffs(m) - 1;
+              if (m) {
+                load_row<V>(a[r], src(sl[r]) + o0);
+                m &= m - 1;
+              }
+            }
+#pragma unroll
+            for (int r = 0; r < G; ++r) {
+              if (sl[r] < 0) break;
+              const bool sv = (serve >> sl[r]) & 1u;
+              int ci = 0, cw = 0, br = 0;
+              if constexpr (P > 1) {
+                if (p > 0) {
+                  ci = c_ihave[e0 + sl[r]];
+                  cw = c_iwant[e0 + sl[r]];
+                }
+              }
+#pragma unroll
+              for (int v = 0; v < V; ++v) {
+                ci += __popc(a[r][v]);
+                const uint32_t want = ci > max_ihave ? 0u : a[r][v] & ~dd[v];
+                const uint32_t first = want & ~before[v];
+                before[v] |= want;
+                cw += __popc(first);
+                const uint32_t asked = cw > max_iwant ? 0u : first;
+                if (sv) served[v] |= asked;
+                else br += __popc(asked);
+              }
+              if constexpr (P > 1) {
+                c_ihave[e0 + sl[r]] = (C)ci;
+                c_iwant[e0 + sl[r]] = (C)cw;
+                c_broken[e0 + sl[r]] += (C)br;
+              } else {
+                c_broken[e0 + sl[r]] = (C)br;
+              }
             }
           }
 #pragma unroll
-          for (int r = 0; r < G; ++r) {
-            if (sl[r] < 0) break;
-            const bool sv = (serve >> sl[r]) & 1u;
-            int ci = 0, cw = 0, br = 0;
-#pragma unroll
-            for (int v = 0; v < V; ++v) {
-              ci += __popc(a[r][v]);
-              const uint32_t want = ci > max_ihave ? 0u : a[r][v] & ~dd[v];
-              const uint32_t first = want & ~before[v];
-              before[v] |= want;
-              cw += __popc(first);
-              const uint32_t asked = cw > max_iwant ? 0u : first;
-              if (sv) served[v] |= asked;
-              else br += __popc(asked);
-            }
-            c_broken[e0 + sl[r]] = (C)br;
-          }
+          for (int v = 0; v < V; ++v) served[v] &= alive_m;
+          store_row<V>(pend + i * w + o0, served);
         }
-#pragma unroll
-        for (int v = 0; v < V; ++v) served[v] &= alive_m;
-        store_row<V>(pend + i * w, served);
       } else {
         for (int c = 0; c < w; ++c) {
           const uint32_t dd = __ldg(have_dedup + i * w + c);
@@ -604,12 +662,13 @@ extern "C" int gossip_launch_shape(int kernel, int variant, int k, int* out) {
     case 2: return launch_shape<2>(kernel, k, out);
     case 4: return launch_shape<4>(kernel, k, out);
     case 8: return launch_shape<8>(kernel, k, out);
+    case 16: return launch_shape<16>(kernel, k, out);
     case 0: return launch_shape<0>(kernel, k, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// `variant` is W's instantiation (1, 2, 4, 8) or 0 for the generic one;
+// `variant` is W's instantiation (1, 2, 4, 8, 16) or 0 for the generic one;
 // `grid` the number of persistent blocks (at most one per tile).
 extern "C" int gossip_propagate(
     const void* mesh, const void* edge_live, const void* nbrs,
@@ -630,6 +689,7 @@ extern "C" int gossip_propagate(
     case 2: return GOSSIP_PROPAGATE(2);
     case 4: return GOSSIP_PROPAGATE(4);
     case 8: return GOSSIP_PROPAGATE(8);
+    case 16: return GOSSIP_PROPAGATE(16);
     case 0: return GOSSIP_PROPAGATE(0);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -655,6 +715,7 @@ extern "C" int gossip_exchange(
     case 2: return GOSSIP_EXCHANGE(2);
     case 4: return GOSSIP_EXCHANGE(4);
     case 8: return GOSSIP_EXCHANGE(8);
+    case 16: return GOSSIP_EXCHANGE(16);
     case 0: return GOSSIP_EXCHANGE(0);
     default: return (int)cudaErrorInvalidValue;
   }

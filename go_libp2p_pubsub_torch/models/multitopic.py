@@ -211,7 +211,7 @@ class MultiTopicGossipSub:
     """T-topic GossipSub simulator sharing one connection graph; state
     lives on ``device`` (default ``"cuda"``, which raises without a card),
     sharded over ``mesh`` (a ``parallel.mesh.PeerMesh`` on that device)
-    when given."""
+    when given.  ``builder`` is the inner ``GossipSub``'s topology hook."""
 
     def __init__(
         self,
@@ -226,6 +226,7 @@ class MultiTopicGossipSub:
         index_dtype_override=None,
         mesh=None,
         device="cuda",
+        builder=None,
     ):
         self.t = n_topics
         self.gs = GossipSub(
@@ -233,7 +234,7 @@ class MultiTopicGossipSub:
             msg_window=msg_window, params=params, score_params=score_params,
             heartbeat_steps=heartbeat_steps,
             index_dtype_override=index_dtype_override, mesh=mesh,
-            device=device,
+            device=device, builder=builder,
         )
         self.device = self.gs.device
         # The sharded rollout: this rank's block of rows [row0, row0 + nl)
@@ -550,14 +551,24 @@ class MultiTopicGossipSub:
 
     def _heartbeat(self, st: MultiTopicState) -> MultiTopicState:
         with span("round.heartbeat", st.step):
-            p, sp = self.params, self.score_params
-            n, k, hb = self.n, self.k, self.heartbeat_steps
-            pm, b = self.mesh, self.nl
-            # A rank of the sharded rollout passes the global-clipped edge
-            # indices to the mesh maintenance, as GossipSub(mesh=) does.
-            edge_idx = None if pm is None else (
-                torch.clamp(st.nbrs, 0, n - 1), torch.clamp(st.rev, 0, k - 1))
+            return self._heartbeat_parts(st)
 
+    def _heartbeat_parts(self, st: MultiTopicState) -> MultiTopicState:
+        # The parts are spans under the single-topic model's names; each
+        # runs every topic in topic order.  The topics' parts are
+        # independent but for PX, which comes last (gossip reads the
+        # pre-PX snapshot, as in the reference).
+        p, sp = self.params, self.score_params
+        n, k, hb = self.n, self.k, self.heartbeat_steps
+        pm, b = self.mesh, self.nl
+        # A rank of the sharded rollout passes the global-clipped edge
+        # indices to the mesh maintenance, as GossipSub(mesh=) does.
+        edge_idx = None if pm is None else (
+            torch.clamp(st.nbrs, 0, n - 1), torch.clamp(st.rev, 0, k - 1))
+        # Each topic's keys: mesh, gossip, iwant, fanout, PX, next.
+        tkeys = [rng.split(st.keys[t], 6).unbind(0) for t in range(self.t)]
+
+        with span("heartbeat.scores", st.step):
             # Tick + decay the topic counters per topic; decay globals once.
             cs = [
                 scoring_ops.decay_topic_counters(scoring_ops.tick_mesh_clocks(
@@ -567,9 +578,9 @@ class MultiTopicGossipSub:
             ]
             g = scoring_ops.decay_global_counters(st.gcounters, sp)
 
-            # v1.1 aggregation: the topic components summed over topics (left
-            # to right from a zero accumulator, the order of XLA's reduction
-            # over T < 32), plus the remote's global components.
+            # v1.1 aggregation: the topic components summed over topics
+            # (left to right from a zero accumulator, the order of XLA's
+            # reduction over T < 32), plus the remote's global components.
             total = torch.zeros((b, k), dtype=torch.float32,
                                 device=self.device)
             for c_t in cs:
@@ -581,51 +592,55 @@ class MultiTopicGossipSub:
                 remote = pm.gather(scoring_ops.global_score(g, sp, pm), jidx)
             scores = torch.where(st.nbr_valid, total + remote, -torch.inf)
 
-            topic_alive = self._topic_alive(st)
+        topic_alive = self._topic_alive(st)
+        age = st.step - st.msg_birth                                  # [T, M]
+        out: Dict[str, List[torch.Tensor]] = {}
+
+        def put(**kw):
+            for name, v in kw.items():
+                out.setdefault(name, []).append(v)
+
+        with span("heartbeat.mesh", st.step):
             do_og = ((st.step // hb) % p.opportunistic_graft_ticks) == 0
-            fanout_ttl_hb = self.gs.fanout_ttl_heartbeats()
-            age = st.step - st.msg_birth                              # [T, M]
-            seen_expired = st.msg_used & (age > self.gs.seen_ttl_steps())
-            gossip_ok = (st.msg_valid & st.msg_active
-                         & (age <= p.history_gossip * hb))
-            expired = st.msg_active & (age > p.history_length * hb)
-            # One promise-breaker view of each slot's remote serves every
-            # topic.
-            serve_ok = ~self.gs._safe_gather(st.gossip_mute, st.nbrs, True)
-
-            out: Dict[str, List[torch.Tensor]] = {}
-
-            def put(**kw):
-                for name, v in kw.items():
-                    out.setdefault(name, []).append(v)
-
             for t in range(self.t):
-                khb, kgossip, kiwant, kfan, kpx, knext = rng.split(
-                    st.keys[t], 6).unbind(0)
-                el, al = st.edge_live[t], topic_alive[t]
                 new_mesh, grafted, pruned, bo2, bo_viol = heartbeat_mesh(
-                    khb, st.mesh[t], scores, st.nbrs, st.rev, el, al, p,
-                    st.backoff[t], st.outbound, do_og,
+                    tkeys[t][0], st.mesh[t], scores, st.nbrs, st.rev,
+                    st.edge_live[t], topic_alive[t], p, st.backoff[t],
+                    st.outbound, do_og,
                     og_threshold=sp.opportunistic_graft_threshold,
                     ignore_backoff=self.gs.graft_spammers,
                     uid=self._uid, edge_idx=edge_idx, pm=pm,
                 )
                 c2 = scoring_ops.on_graft(
                     scoring_ops.on_prune(cs[t], pruned, sp), grafted)
+                put(mesh=new_mesh, backoff=bo2, bo_viol=bo_viol,
+                    pruned=pruned)
+                put(**{f"c.{i}": v for i, v in enumerate(c2)})
+
+        with span("heartbeat.gossip", st.step):
+            seen_expired = st.msg_used & (age > self.gs.seen_ttl_steps())
+            gossip_ok = (st.msg_valid & st.msg_active
+                         & (age <= p.history_gossip * hb))
+            # One promise-breaker view of each slot's remote serves every
+            # topic.
+            serve_ok = ~self.gs._safe_gather(st.gossip_mute, st.nbrs, True)
+            for t in range(self.t):
+                al = topic_alive[t]
                 have_t = st.have_w[t]
                 have2 = have_t & ~bitpack.pack(seen_expired[t])
-                # gossip_packed.gossip_exchange_packed with its select run by
-                # K2: the topic's possession advertises, the scrubbed one
-                # dedups.
+                # gossip_packed.gossip_exchange_packed with its select run
+                # by K2: the topic's possession advertises, the scrubbed
+                # one dedups.
                 if min(p.d_lazy, k) <= 0:
                     iwant_t = torch.zeros_like(have_t)
                     broken_t = torch.zeros((b, k), dtype=torch.float32,
                                            device=self.device)
                 else:
                     x = exchange_prep(
-                        kgossip, kiwant, have_t, new_mesh, st.nbrs, st.rev, el,
-                        al, scores, bitpack.pack(gossip_ok[t]), p,
-                        sp.gossip_threshold, serve_ok, uid=self._uid, pm=pm,
+                        tkeys[t][1], tkeys[t][2], have_t, out["mesh"][t],
+                        st.nbrs, st.rev, st.edge_live[t], al, scores,
+                        bitpack.pack(gossip_ok[t]), p, sp.gossip_threshold,
+                        serve_ok, uid=self._uid, pm=pm,
                     )
                     select = (cuda_gossip.exchange_select if pm is None else
                               partial(cuda_gossip.exchange_select_sharded, pm))
@@ -634,34 +649,12 @@ class MultiTopicGossipSub:
                         have2, al, p.max_ihave_length, p.max_iwant_length,
                     )
                     broken_t = broken_p.gather(1, x.inv.long())
-                # Fanout upkeep for this topic's non-subscribed publishers.
-                fage2 = torch.clamp(st.fanout_age[t] + 1, max=_AGE_CAP)
-                factive = ((fage2 <= fanout_ttl_hb) & ~st.subscribed[t]
-                           & st.alive)
-                feligible = el & (scores >= sp.publish_threshold)
-                fkeep = st.fanout[t] & feligible
-                fwant = torch.where(
-                    factive, torch.clamp(p.d - fkeep.sum(dim=1), 0, p.d), 0
-                ).to(torch.int32)
-                fadd = top_mask(
-                    torch.where(feligible & ~fkeep,
-                                uniform_by_uid(kfan, (b, k), self._uid),
-                                -torch.inf),
-                    fwant, kmax=p.d,
-                )
-                put(mesh=new_mesh,
-                    fanout=torch.where(factive[:, None], fkeep | fadd, False),
-                    fanout_age=fage2, backoff=bo2, have_w=have2,
-                    gossip_pend_w=st.gossip_pend_w[t]
-                    & ~bitpack.pack(expired[t])[None, :],
-                    iwant_pend_w=iwant_t, keys=knext, bo_viol=bo_viol,
-                    broken=broken_t, pruned=pruned, kpx=kpx)
-                put(**{f"c.{i}": v for i, v in enumerate(c2)})
+                put(have_w=have2, iwant_pend_w=iwant_t, broken=broken_t)
 
             # P7 is global: backoff-violating GRAFTs and broken promises in
-            # any topic accrue to the sender's one behaviour-penalty counter
-            # (broken promises charged by remote id).  Both sums are
-            # integer-valued.
+            # any topic accrue to the sender's one behaviour-penalty
+            # counter (broken promises charged by remote id).  Both sums
+            # are integer-valued.
             broken = torch.stack(out["broken"]).sum(dim=0)
             promise_ids = torch.where(st.nbr_valid, st.nbrs, n).reshape(-1)
             if pm is None:
@@ -677,14 +670,38 @@ class MultiTopicGossipSub:
                 behaviour_penalty=g.behaviour_penalty
                 + torch.stack(out["bo_viol"]).sum(dim=0) + promise_viol)
 
-            # PX on prune, serialized across topics in topic order: each call
-            # rewires the shared adjacency the next topic's call sees.  Gossip
-            # above ran on the pre-PX snapshot, as in the reference.
+        with span("heartbeat.fanout", st.step):
+            fanout_ttl_hb = self.gs.fanout_ttl_heartbeats()
+            expired = st.msg_active & (age > p.history_length * hb)
+            for t in range(self.t):
+                # Fanout upkeep for this topic's non-subscribed publishers.
+                fage2 = torch.clamp(st.fanout_age[t] + 1, max=_AGE_CAP)
+                factive = ((fage2 <= fanout_ttl_hb) & ~st.subscribed[t]
+                           & st.alive)
+                feligible = st.edge_live[t] & (scores >= sp.publish_threshold)
+                fkeep = st.fanout[t] & feligible
+                fwant = torch.where(
+                    factive, torch.clamp(p.d - fkeep.sum(dim=1), 0, p.d), 0
+                ).to(torch.int32)
+                fadd = top_mask(
+                    torch.where(feligible & ~fkeep,
+                                uniform_by_uid(tkeys[t][3], (b, k), self._uid),
+                                -torch.inf),
+                    fwant, kmax=p.d,
+                )
+                put(fanout=torch.where(factive[:, None], fkeep | fadd, False),
+                    fanout_age=fage2,
+                    gossip_pend_w=st.gossip_pend_w[t]
+                    & ~bitpack.pack(expired[t])[None, :])
+
+        with span("heartbeat.px", st.step):
+            # PX on prune, serialized across topics in topic order: each
+            # call rewires the shared adjacency the next topic's call sees.
             nbrs2, rev2, nv2, ob2 = st.nbrs, st.rev, st.nbr_valid, st.outbound
             backoff, connected = [], []
             for t in range(self.t):
                 px = px_rewire(
-                    out["kpx"][t], nbrs2, rev2, nv2, ob2, out["backoff"][t],
+                    tkeys[t][4], nbrs2, rev2, nv2, ob2, out["backoff"][t],
                     out["mesh"][t], out["pruned"][t], scores, st.alive,
                     sp.accept_px_threshold, uid=self._uid, pm=pm,
                 )
@@ -693,28 +710,28 @@ class MultiTopicGossipSub:
                 backoff.append(px.backoff)
                 connected.append(px.connected.any() if pm is None
                                  else pm.any(px.connected))
-            # The reference regathers the liveness caches under lax.cond when a
-            # PX edge formed; both branches agree otherwise.
+            # The reference regathers the liveness caches under lax.cond
+            # when a PX edge formed; both branches agree otherwise.
             edge_live = torch.where(
                 torch.stack(connected).any(),
                 self._edge_live_stack(nv2, nbrs2, topic_alive), st.edge_live)
-            return st._replace(
-                nbrs=nbrs2, rev=rev2, nbr_valid=nv2, outbound=ob2,
-                edge_live=edge_live,
-                mesh=torch.stack(out["mesh"]),
-                fanout=torch.stack(out["fanout"]),
-                fanout_age=torch.stack(out["fanout_age"]),
-                backoff=torch.stack(backoff),
-                counters=TopicCounters(*(
-                    torch.stack(out[f"c.{i}"])
-                    for i in range(len(TopicCounters._fields)))),
-                gcounters=g, scores=scores,
-                have_w=torch.stack(out["have_w"]),
-                gossip_pend_w=torch.stack(out["gossip_pend_w"]),
-                iwant_pend_w=torch.stack(out["iwant_pend_w"]),
-                msg_active=st.msg_active & ~expired,
-                keys=torch.stack(out["keys"]),
-            )
+        return st._replace(
+            nbrs=nbrs2, rev=rev2, nbr_valid=nv2, outbound=ob2,
+            edge_live=edge_live,
+            mesh=torch.stack(out["mesh"]),
+            fanout=torch.stack(out["fanout"]),
+            fanout_age=torch.stack(out["fanout_age"]),
+            backoff=torch.stack(backoff),
+            counters=TopicCounters(*(
+                torch.stack(out[f"c.{i}"])
+                for i in range(len(TopicCounters._fields)))),
+            gcounters=g, scores=scores,
+            have_w=torch.stack(out["have_w"]),
+            gossip_pend_w=torch.stack(out["gossip_pend_w"]),
+            iwant_pend_w=torch.stack(out["iwant_pend_w"]),
+            msg_active=st.msg_active & ~expired,
+            keys=torch.stack([tk[5] for tk in tkeys]),
+        )
 
     def _step_wide(self, st: MultiTopicState) -> MultiTopicState:
         """One round on the int32 index view; the heartbeat schedule is

@@ -66,7 +66,7 @@ from ..utils.trace import span
 SOURCE = os.path.join(cuda_build.CSRC_DIR, "gossip_kernels.cu")
 LIB_PATH = os.path.join(cuda_build.BUILD_DIR, "libgossip_kernels.so")
 MAX_SLOTS = 32  # a peer's slots are the bits of one 32-bit mask
-VECTOR_WIDTHS = (1, 2, 4, 8)  # W with an instantiation of their own
+VECTOR_WIDTHS = (1, 2, 4, 8, 16)  # W with an instantiation of their own
 KERNELS = ("propagate", "exchange")  # K1, K2: the library's kernel index
 
 
@@ -83,7 +83,7 @@ _shapes: Dict[Tuple[str, int, int, int], LaunchShape] = {}
 
 
 def kernel_variant(w: int, addresses: Sequence[Optional[int]]) -> int:
-    """W's instantiation (1, 2, 4 or 8), or 0 for the generic one.
+    """W's instantiation (1, 2, 4, 8 or 16), or 0 for the generic one.
 
     ``addresses`` are the device addresses of the tensors the kernel reads
     as W-word vectors (the gathered table and the other [N, W] and [W]

@@ -48,6 +48,20 @@ way round.
 both None.
 ``profile_every``/``profile_dir`` capture a ``torch.profiler`` trace of
 every Nth chunk into ``profile_dir`` (``utils.trace.profiler_trace``).
+
+What a chunk did is readable without touching the device: the program
+spans ``stream.chunk`` (``run_chunk``) around ``stream.ingest`` (the pop,
+the slot allocation and the event rows) and ``stream.fold`` (the
+completion fold), with the chunk program's ``rollout`` and the model's
+``stream.digest`` inside (``utils/trace``; off unless a recorder is set);
+``last_events``, the ``MultiTopicEvents`` the last chunk dispatched (host
+numpy, the engine's own arrays, never written after the dispatch); the
+counts ``lanes_filled`` and ``lanes_offered`` (publish lanes that carried
+a publish, and all lanes, of the chunks ``run_chunk`` ran); and
+``deliveries``, the peers each completed message had reached when its
+completion was read.  These three counts run from construction and are
+not carried by a snapshot; they stay off ``metrics``, whose series are
+the reference engine's.
 """
 
 from __future__ import annotations
@@ -65,7 +79,7 @@ from ..models.multitopic import EVENT_ROWS, fires
 from ..obs.spans import content_hash  # re-exported
 from ..ops import schedule as sched
 from ..utils import checkpoint as ckpt
-from ..utils.trace import profiler_trace
+from ..utils.trace import profiler_trace, span
 from .ingest import IngestItem, IngestRing
 from .tuning import ChunkGeometry, validate_ladder
 
@@ -273,6 +287,11 @@ class StreamingEngine:
         self._seen_hashes: set = set()        # every VALID publish, ever
         self._completed_hashes: set = set()   # every completed content
         self.flight_tail: Dict[str, np.ndarray] = {}
+        self.deliveries = 0    # peers reached by completed messages
+        self.lanes_filled = 0  # publish lanes that carried a publish
+        self.lanes_offered = 0  # publish lanes of the chunks run_chunk ran
+        # The events of the last dispatched chunk (read-only; see above).
+        self.last_events: Optional[sched.MultiTopicEvents] = None
         # Degraded-links knob: when set, every chunk's first event row
         # carries this ingress delay for all peers.
         self.ingress_delay: Optional[int] = None
@@ -341,8 +360,18 @@ class StreamingEngine:
     def run_chunk(self) -> dict:
         """Pop one chunk's worth of ingest, publish, advance chunk_steps
         rounds, and fold completions.  Returns a host-side summary."""
+        with span("stream.chunk", self.steps_run):
+            with span("stream.ingest", self.steps_run):
+                events, n_items = self._ingest()
+            return self._dispatch(events, n_items=n_items)
+
+    def _ingest(self) -> Tuple[sched.MultiTopicEvents, int]:
+        """Pop up to one chunk of ring items into a chunk's event rows
+        (publishes spread round-robin over its rounds) -> (events, items
+        popped)."""
         events = self._empty_events()
-        items = self.ring.pop_batch(self.chunk_steps * self.pub_width)
+        lanes = self.chunk_steps * self.pub_width
+        items = self.ring.pop_batch(lanes)
         base_step = self.steps_run
         t_dispatch = self._clock()
         cursor = 0
@@ -383,7 +412,9 @@ class StreamingEngine:
             else:
                 self.invalid_published.append((item.topic, slot))
             self.published += 1
-        return self._dispatch(events, n_items=len(items))
+        self.lanes_filled += cursor
+        self.lanes_offered += lanes
+        return events, len(items)
 
     def run_until_drained(self, max_chunks: int = 64) -> int:
         """Chunk until the ring is empty and no message is pending (or the
@@ -632,6 +663,7 @@ class StreamingEngine:
             and (self.chunks_run + 1) % self.profile_every == 0
         )
         program = _program(self.model, self.chunk_steps, self.pub_width)
+        self.last_events = events
         with profiler_trace(self.profile_dir if do_profile else None,
                             self.model.device,
                             f"chunk_{self.chunks_run:06d}.json"):
@@ -655,10 +687,11 @@ class StreamingEngine:
         deliver_steps = (_read(deliver_dev) if deliver_dev is not None
                          else None)
         step = int(digest["step"])
-        completed_now = self._fold_completions(
-            counts[: t * m].reshape(t, m), counts[t * m:], step, t_done,
-            t_start=t_start, deliver_steps=deliver_steps,
-        )
+        with span("stream.fold", step):
+            completed_now = self._fold_completions(
+                counts[: t * m].reshape(t, m), counts[t * m:], step, t_done,
+                t_start=t_start, deliver_steps=deliver_steps,
+            )
         # Flight-recorder tail: the chunk's last round of each telemetry
         # channel, packed into one int32 read.
         self.flight_tail = _read_tail(tail)
@@ -751,6 +784,7 @@ class StreamingEngine:
                         )
                         self.tracer.close(p.chash, t=t_exact)
                 self.completed += 1
+                self.deliveries += int(delivered[topic, slot])
                 if p.chash:
                     if p.chash in self._completed_hashes:
                         self.duplicate_completions += 1

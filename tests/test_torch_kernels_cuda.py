@@ -1,8 +1,8 @@
 """The port's two CUDA kernels held against their plain PyTorch versions on
 an NVIDIA card, bit for bit, in every arm (K1: plain, IDONTWANT, per-edge
 sender planes; K2: binding and non-binding caps).  The geometries reach
-every instantiation (W in {1, 2, 4, 8} message words, and W = 3 through
-the generic one), K in {1, 8, 16, 31, 32} slots, and N from one peer
+every instantiation (W in {1, 2, 4, 8, 16} message words, and W = 3
+through the generic one), K in {1, 8, 16, 31, 32} slots, and N from one peer
 through a grid whose persistent blocks walk several tiles each and end on
 a ragged one ("many"); tables read through a misaligned view take the
 generic instantiation.
@@ -23,13 +23,14 @@ GEOMETRIES = [
     (0, 512, 32, 4), (1, 200, 8, 2), (2, 589, 16, 8),
     # every W instantiation, and W = 3 through the generic one
     (3, 589, 32, 1), (4, 589, 32, 2), (5, 589, 32, 3), (6, 589, 32, 8),
+    (19, 589, 32, 16),
     # K below a warp, down to one slot
     (7, 589, 1, 4), (8, 589, 8, 4), (9, 589, 16, 4), (10, 589, 31, 4),
     # one peer
     (11, 1, 32, 4), (12, 1, 31, 3), (13, 1, 1, 1),
     # several tiles a block and a ragged last tile
     (14, "many", 32, 4), (15, "many", 16, 8), (16, "many", 31, 3),
-    (17, "many", 8, 1), (18, "many", 1, 2),
+    (17, "many", 8, 1), (18, "many", 1, 2), (20, "many", 32, 16),
 ]
 CAPS = [(3, 2), (70, 40), (5000, 5000)]
 

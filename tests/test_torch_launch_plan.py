@@ -16,18 +16,19 @@ SHAPE = LaunchShape(tile_peers=128, blocks_per_sm=6)
 SMS = 132
 
 
-@pytest.mark.parametrize("w", [1, 2, 4, 8])
+@pytest.mark.parametrize("w", [1, 2, 4, 8, 16])
 def test_vector_widths_take_their_own_instantiation(w):
     assert kernel_variant(w, [0, 4096, None]) == w
 
 
-@pytest.mark.parametrize("w", [3, 5, 6, 16, 40])
+@pytest.mark.parametrize("w", [3, 5, 6, 12, 40])
 def test_other_widths_take_the_generic_instantiation(w):
     assert kernel_variant(w, [0, 4096]) == 0
 
 
 @pytest.mark.parametrize("w,address,variant", [
     (4, 8, 0), (4, 4, 0), (8, 32 + 8, 0),  # 16-byte vectors
+    (16, 64 + 4, 0), (16, 64 + 16, 16),
     (2, 4, 0), (2, 8, 2),                  # 8-byte vectors
     (1, 4, 1),                             # a word needs a word's alignment
 ])
