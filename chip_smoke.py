@@ -6,8 +6,9 @@
 Phases (each one fails the run, exit code != 0, on any error):
 
 1. probe   -- a CUDA card must be present; prints its name and power limit;
-2. build   -- compiles the gossip kernels K1/K2 and the ed25519 verify
-              kernel E1 (nvcc, sm_90a, one call each) and the native
+2. build   -- compiles the gossip kernels K1/K2, the ed25519 verify
+              kernel E1, the PRNG's and the recorder's histogram kernel
+              (nvcc, sm_90a, one call each) and the native
               ed25519 library (g++) from the repository's sources, all at
               once; counts the multiplies of E1's field multiply in its
               SASS (cuobjdump);
@@ -21,7 +22,14 @@ Phases (each one fails the run, exit code != 0, on any error):
               blocks of each instantiation an SM holds; times both at
               the main path's shapes (CUDA events; W = 4, and W = 16 for
               the stream's 512-message window), warm and with the L2
-              flushed, beside the least time the card could take;
+              flushed, beside the least time the card could take; then
+              the recorder's latency-histogram kernel
+              (``ops/cuda_hist.py``) against the PyTorch expression it
+              replaces at the stream's [2, 100000, 512] recount and the
+              closed loop's [1, 100000, 128] seed, on recorder-like and
+              random stamps: every bin equal, one launch a recount; its
+              time (median of 20) warm and L2-flushed beside its bytes
+              bound, and the expression's;
 3b. oracle -- K1 and K2 against the unpacked gossip plane
               (``ops/gossip.py``: the boolean [N, K, M] ``propagate``,
               ``ihave_advertise`` and ``iwant_select``), an oracle
@@ -479,6 +487,8 @@ def ptxas_report(text: str):
                           r"ed25519_verify_one|threefry)_kernelILi(\d+)E",
                           m.group(1))
             fn = f"{k.group(1)}_kernel<{k.group(2)}>" if k else None
+            if "latency_hist_kernel" in m.group(1):
+                fn = "latency_hist_kernel"
             if fn:
                 report.setdefault(fn, {})
             continue
@@ -519,6 +529,18 @@ def check_prng_ptxas(text: str):
     for name, r in report.items():
         if r.get("spill_stores", 0) or r.get("spill_loads", 0):
             fail(f"{name} spills: {r}")
+    return report
+
+
+def check_hist_ptxas(text: str):
+    """Fails the run if the histogram kernel spills; returns the report."""
+    report = ptxas_report(text)
+    r = report.get("latency_hist_kernel")
+    if not r or "registers" not in r:
+        fail(f"ptxas reported no registers for the histogram kernel: "
+             f"{report}")
+    if r.get("spill_stores", 0) or r.get("spill_loads", 0):
+        fail(f"latency_hist_kernel spills: {r}")
     return report
 
 
@@ -662,10 +684,109 @@ def check_kernels(dev, ptxas):
     return records
 
 
+HIST_BINS = 32                     # the recorder's FLIGHT_HIST_BINS
+HIST_SHAPES = ((2, 100_000, 512), (1, 100_000, 128))   # stream, closed loop
+HIST_SEED, HIST_BUDGET_S = 2026, 60.0
+
+
+def hist_inputs(gen, kind: str, t: int, n: int, m: int, dev):
+    """(first_step, msg_birth, msg_mask, peer_mask) of a recount at [t, n,
+    m].  ``recorder``: what the recorder finds.  With one topic, the closed
+    loop's seed right after its window's publishes: each message stamped
+    at its birth at its publisher alone.  With two, a saturated stream's
+    chunk end: topic 0 (blocks) uses 2% of its slots, topic 1
+    (aggregates) 75%; a used slot reaches 97% of the peers at 0-11 rounds,
+    most at 2-5.  ``random``: random stamps, births and masks."""
+    import torch
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def coin(p, shape):
+        return torch.rand(shape, generator=gen, device=dev) < p
+
+    if kind == "random":
+        birth = ints(-50, 200, (t, m))
+        first = ints(-3, 300, (t, n, m))
+        return first, birth, coin(0.8, (t, m)), coin(0.9, (t, n))
+    peer_mask = torch.ones((t, n), dtype=torch.bool, device=dev)
+    birth = ints(100, 148, (t, m))
+    if t == 1:
+        src = ints(0, n, (m,)).long()
+        first = torch.full((t, n, m), -1, dtype=torch.int32, device=dev)
+        first[0, src, torch.arange(m, device=dev)] = birth[0]
+        return first, birth, coin(0.97, (t, m)), peer_mask
+    used = torch.stack([coin(0.02, (m,)), coin(0.75, (m,))])
+    lat = torch.clamp(ints(0, 4, (t, n, m)) + ints(0, 4, (t, n, m))
+                      + ints(0, 5, (t, n, m)) - 1, min=0)
+    reached = coin(0.97, (t, n, m)) & used[:, None, :]
+    first = torch.where(reached, birth[:, None, :] + lat, -1)
+    return first.to(torch.int32), birth, used & coin(0.97, (t, m)), peer_mask
+
+
+def check_hist(dev, ptxas=None):
+    """The histogram kernel against the PyTorch expression
+    (``histogram._topics_plain``) at ``HIST_SHAPES``
+    on recorder-like and random stamps, and its times on the recorder's.
+    Returns its record (``launches`` filled by the closed loop in a full
+    run)."""
+    import torch
+
+    from go_libp2p_pubsub_torch.ops import cuda_hist
+    from go_libp2p_pubsub_torch.ops.histogram import _topics_plain as plain
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(HIST_SEED)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    cases, timed = 0, {}
+    for t, n, m in HIST_SHAPES:
+        for kind in ("random", "recorder"):
+            args = hist_inputs(gen, kind, t, n, m, dev)
+            want = plain(*args, HIST_BINS)
+            before = cuda_hist.latency_hist.launches
+            got = cuda_hist.latency_hist(*args, HIST_BINS)
+            if cuda_hist.latency_hist.launches != before + 1:
+                fail(f"hist {kind} {t}x{n}x{m}: not one launch")
+            bad = int((got != want).sum())
+            cases += 1
+            if bad:
+                fail(f"hist {kind} {t}x{n}x{m}: {bad} of {HIST_BINS} bins "
+                     f"differ from the PyTorch expression: "
+                     f"{got.tolist()} against {want.tolist()}")
+        fn = lambda: cuda_hist.latency_hist(*args, HIST_BINS)  # noqa: E731
+        nbytes = _nbytes(*args) + HIST_BINS * 4
+        ms, cold = _time_ms(fn), _time_ms(fn, flush=flush)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        timed[f"{t}x{n}x{m}"] = dict(
+            ms=ms, ms_l2_flushed=cold, bound_ms=bound, bound_bytes=nbytes,
+            bound_share=bound / ms, bound_share_l2_flushed=bound / cold,
+            counted=int(want.sum()),
+            plain_ms=_time_ms(lambda: plain(*args, HIST_BINS), reps=5),
+            call_ms=_time_ms(fn, lead=False),
+            grid=[cuda_hist.grid_blocks(
+                t, n, cuda_hist.blocks_per_sm(dev, HIST_BINS, m),
+                cuda_hist.sm_count(dev)), t],
+            blocks_per_sm=cuda_hist.blocks_per_sm(dev, HIST_BINS, m))
+    del flush
+    seconds = time.perf_counter() - t0
+    if seconds > HIST_BUDGET_S:
+        fail(f"the histogram check took {seconds:.1f} s, over "
+             f"{HIST_BUDGET_S}")
+    return dict(name="latency_hist", route="cuda",
+                source="go_libp2p_pubsub_torch/csrc/latency_hist.cu",
+                replaces=None, launches=None, cases=cases, mismatches=0,
+                bound_by="bytes", library_ms=None, seconds=seconds,
+                registers=(ptxas or {}).get("latency_hist_kernel", {}).get(
+                    "registers"), timed=timed)
+
+
 def kernels_phase(dev, card: str, ptxas=None):
     """Phase 3 alone (``--phase kernels``): prints each kernel's record
     without the launch counts the other phases fill in."""
     records = check_kernels(dev, ptxas)
+    records.append(check_hist(dev, ptxas))
     for r in records:
         emit(dict(phase="kernel", **r))
     return records
@@ -1480,7 +1601,8 @@ def main_path(dev, card: str):
     from go_libp2p_pubsub_torch.crypto import native
     from go_libp2p_pubsub_torch.crypto.pipeline import ValidationPipeline
     from go_libp2p_pubsub_torch.models.gossipsub import GossipSub
-    from go_libp2p_pubsub_torch.ops import cuda_ed25519, cuda_gossip, cuda_rng
+    from go_libp2p_pubsub_torch.ops import (cuda_ed25519, cuda_gossip,
+                                            cuda_hist, cuda_rng)
     from go_libp2p_pubsub_torch.utils.metrics import flight_summary
 
     rng = np.random.default_rng(1)
@@ -1530,6 +1652,7 @@ def main_path(dev, card: str):
     torch.cuda.synchronize()
     cuda_gossip.reset_launches()
     cuda_rng.reset_launches()
+    cuda_hist.reset_launches()
     t0 = time.perf_counter()
     out, rec = gs.rollout(st, ROLLOUT_STEPS, record=True)
     torch.cuda.synchronize()
@@ -1542,6 +1665,10 @@ def main_path(dev, card: str):
              f"{ROLLOUT_STEPS} K1 and {ROLLOUT_STEPS // 8} K2")
     launches["ed25519_verify"] = e1_launches
     launches["threefry"] = cuda_rng.threefry.launches
+    launches["latency_hist"] = cuda_hist.latency_hist.launches
+    if launches["latency_hist"] != 1:
+        fail(f"the timed rollout's recorder seed launched the histogram "
+             f"kernel {launches['latency_hist']} times, not 1")
 
     flight = flight_summary(rec)
     frac, p50, p99 = (x.cpu().numpy() for x in gs.delivery_stats(out))
@@ -4979,7 +5106,7 @@ def main() -> None:
     try:
         from go_libp2p_pubsub_torch.crypto import native
         from go_libp2p_pubsub_torch.ops import (cuda_ed25519, cuda_gossip,
-                                                cuda_rng)
+                                                cuda_hist, cuda_rng)
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
     card = card_line()
@@ -4989,33 +5116,37 @@ def main() -> None:
     # A run of chosen phases builds E1 only when one of them launches it.
     with_e1 = not args.phase or bool({"main", "live"} & set(args.phase))
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as ex:
+    with concurrent.futures.ThreadPoolExecutor(5) as ex:
         kernels = ex.submit(cuda_gossip.build, True)
         prng = ex.submit(cuda_rng.build, True)
+        hist = ex.submit(cuda_hist.build, True)
         e1 = ex.submit(cuda_ed25519.build, True) if with_e1 else None
         ed = ex.submit(native.build)
         base = (ex.submit(e1_baseline, args.e1_baseline)
                 if args.e1_baseline else None)
         ptxas = check_ptxas(kernels.result())
         prng_ptxas = check_prng_ptxas(prng.result())
+        hist_ptxas = check_hist_ptxas(hist.result())
         e1_ptxas = check_e1_ptxas(e1.result()) if with_e1 else None
         ed.result()
         baseline = base.result() if base else None
     imads = fe_mul_imads() if with_e1 else None
     emit(dict(phase="build", seconds=time.perf_counter() - t0, ptxas=ptxas,
-              prng_ptxas=prng_ptxas, e1_ptxas=e1_ptxas,
+              prng_ptxas=prng_ptxas, hist_ptxas=hist_ptxas, e1_ptxas=e1_ptxas,
               e1_fe_mul_imads=imads))
     if args.phase:
         torch.cuda.set_device(dev)
         torch.zeros(1, device=dev)          # the context, before any phase
         for name in args.phase:
             if name == "kernels":
-                kernels_phase(dev, card, ptxas)
+                kernels_phase(dev, card, ptxas | hist_ptxas)
             else:
                 PHASES[name](dev, card)
         return
 
     records = check_kernels(dev, ptxas)
+    hist = check_hist(dev, hist_ptxas)
+    emit(dict(phase="hist", card=card, **hist))
     oracle_cells = oracle_phase(dev, card)
     for r in records:
         r["oracle_cells"] = oracle_cells[r["name"]]
@@ -5023,6 +5154,7 @@ def main() -> None:
     prng = prng_phase(dev, card)
     launches = main_path(dev, card)
     prng["launches"] = launches["threefry"]
+    hist["launches"] = launches["latency_hist"]
     scenario_launches = scenario_phase(dev, card)
     serve_launches, streaming_launches = serve_phase(dev, card)
     tree_launches = tree_phase(dev, card)
@@ -5044,7 +5176,8 @@ def main() -> None:
         r["launches_tools"] = tools_launches[r["name"]]
         emit(dict(phase="kernel", **r))
     emit(dict(phase="kernel", **prng))
-    emit({"kernels": records + [prng]})
+    emit(dict(phase="kernel", **hist))
+    emit({"kernels": records + [prng, hist]})
     print(card, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

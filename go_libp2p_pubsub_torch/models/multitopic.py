@@ -765,14 +765,9 @@ class MultiTopicGossipSub:
         with span("round.record", st.step):
             topic_alive = self._topic_alive(st)                   # [T, N]
             in_window = st.msg_used & st.msg_valid                # [T, M]
-            lat = st.first_step - st.msg_birth[:, None, :]
-            counted = ((st.first_step >= 0) & topic_alive[:, :, None]
-                       & in_window[:, None, :])
-            seg = torch.where(
-                counted, torch.clamp(lat, 0, FLIGHT_HIST_BINS - 1),
+            hist = hist_ops.latency_histogram_topics(
+                st.first_step, st.msg_birth, in_window, topic_alive,
                 FLIGHT_HIST_BINS)
-            hist = hist_ops._bin_counts(torch.ones_like(seg), seg,
-                                        FLIGHT_HIST_BINS)
             part_t = topic_alive.sum(dim=1, dtype=torch.int32)    # [T]
             mesh_deg = (st.mesh & st.nbr_valid[None]).sum(dim=2,
                                                            dtype=torch.int32)

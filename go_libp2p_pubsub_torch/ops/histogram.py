@@ -5,12 +5,18 @@ rounds, so a fixed-bin integer histogram carried through the rollout and
 advanced by each round's new receipts gives exact quantiles afterwards
 with no host sync inside the rollout.  Scatter-adds are ``index_add_``
 with the masked-out entries routed to an overflow bin that is cut off.
+
+A recount of a whole stamp table (:func:`latency_histogram_topics`,
+:func:`latency_histogram`, :func:`latency_histogram_seed`) on CUDA
+tensors is one launch of the histogram kernel (``ops/cuda_hist.py``); on
+CPU tensors it is the PyTorch expression.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import cuda_hist
 from .fma import fma, ftz
 
 
@@ -22,9 +28,37 @@ def _bin_counts(values: torch.Tensor, seg: torch.Tensor, n_bins: int):
     return out[:n_bins]
 
 
+def _on_card(first_step: torch.Tensor) -> bool:
+    return first_step.device.type == "cuda"
+
+
+def latency_histogram_topics(first_step, msg_birth, msg_mask, peer_mask,
+                             n_bins: int):
+    """int32[n_bins]: :func:`latency_histogram` of each topic's stamp
+    table (``first_step`` int32[T, N, M], ``msg_birth`` and ``msg_mask``
+    [T, M], ``peer_mask`` [T, N]), summed over the topics."""
+    if _on_card(first_step):
+        return cuda_hist.latency_hist(first_step, msg_birth, msg_mask,
+                                      peer_mask, n_bins)
+    return _topics_plain(first_step, msg_birth, msg_mask, peer_mask, n_bins)
+
+
+def _topics_plain(first_step, msg_birth, msg_mask, peer_mask, n_bins: int):
+    """:func:`latency_histogram_topics` as PyTorch operations on any
+    device: the CPU path, and what the kernel is held to on the card."""
+    lat = first_step - msg_birth[:, None, :]
+    counted = ((first_step >= 0) & peer_mask[:, :, None]
+               & msg_mask[:, None, :])
+    seg = torch.where(counted, torch.clamp(lat, 0, n_bins - 1), n_bins)
+    return _bin_counts(torch.ones_like(seg), seg, n_bins)
+
+
 def latency_histogram(first_step, msg_birth, msg_mask, peer_mask, n_bins: int):
     """int32[n_bins] counts of first-receipt latencies (rounds), last bin
     absorbing the tail; counted where ``first_step >= 0`` under the masks."""
+    if _on_card(first_step):
+        return cuda_hist.latency_hist(first_step[None], msg_birth[None],
+                                      msg_mask[None], peer_mask[None], n_bins)
     lat = first_step - msg_birth[None, :]
     counted = (first_step >= 0) & peer_mask[:, None] & msg_mask[None, :]
     bins = torch.clamp(lat, 0, n_bins - 1)
@@ -47,7 +81,12 @@ def latency_histogram_seed(first_step, msg_birth, msg_mask, peer_mask,
     path: when every counted receipt has latency zero the histogram is one
     count in bin 0.  The reference picks the branch with ``lax.cond``;
     here ``torch.where`` selects between both (they agree whenever the
-    cheap one applies), so the seed never syncs with the host."""
+    cheap one applies), so the seed never syncs with the host.  On the card
+    the full histogram alone is the seed: it is the cheap one whenever that
+    applies, and the kernel's one pass costs less than the test."""
+    if _on_card(first_step):
+        return latency_histogram(first_step, msg_birth, msg_mask, peer_mask,
+                                 n_bins)
     counted = (first_step >= 0) & peer_mask[:, None] & msg_mask[None, :]
     zero_lat = first_step == msg_birth[None, :]
     all_zero = ~torch.any(counted & ~zero_lat)

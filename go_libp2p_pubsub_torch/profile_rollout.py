@@ -17,8 +17,9 @@ warm ``rollout(24, record=True)``, then, from the same state each time:
   time (the union of its kernels' and copies' intervals on the card) and
   the idle share ``1 - busy / wall``, the kernel launches per round, the
   kernels that take the most time and the launches (in all and a round)
-  and device time of the port's own kernels (``port_kernels``: K1, K2 and
-  the PRNG's threefry kernel); the device time of the
+  and device time of the port's own kernels (``port_kernels``: K1, K2,
+  the PRNG's threefry kernel and the recorder's latency histogram); the
+  device time of the
   kernels launched inside each program span (``ranges``: a kernel counts
   in every span open on the host when its launch call ran, the launch
   found through the trace's correlation id; spans nest, so K1's time is
@@ -87,7 +88,8 @@ ROUNDS = 24
 # span of the port kernel's entry -> its kernel's name in the trace
 PORT_KERNELS = {"kernel.k1": "propagate_kernel",
                 "kernel.k2": "exchange_kernel",
-                "kernel.prng": "threefry_kernel"}
+                "kernel.prng": "threefry_kernel",
+                "kernel.hist": "latency_hist_kernel"}
 IDLE_GAPS = 10
 
 
